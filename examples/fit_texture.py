@@ -1,11 +1,13 @@
 """Inverse rendering demo: recover a texture from rendered images.
 
-Renders a target image of the textured tree, re-initializes the texture atlas
-to gray, and gradient-descends the ATLAS PIXELS until renders match — the
-texture-gather VJP (a scatter-add, DESIGN.md) doing the work.  Outputs
+Renders a target image of a sphere under the generated foliage texture,
+re-initializes the texture atlas to gray, and gradient-descends the ATLAS
+PIXELS until renders match — the texture-gather VJP (a scatter-add,
+DESIGN.md) doing the work.  Renders with the differentiable jnp oracle
+(mode "bruteforce") on whatever device JAX picks.  Outputs
 before/after/target PNGs under examples/out/.
 
-Run: python examples/fit_texture.py [--cpu]
+Run: python examples/fit_texture.py [--cpu]   (--cpu: pin the CPU)
 """
 
 import os
@@ -21,26 +23,29 @@ import numpy as np
 import jax.numpy as jnp
 import optax
 
-from simple_raytracer_tpu.config import default_config, CameraConfig, LightConfig
-from simple_raytracer_tpu.render.renderer import render_radiance
-from simple_raytracer_tpu.render import integrator
-from simple_raytracer_tpu.scene.scene import SceneManager
-import simple_raytracer_tpu.scene.transforms as T
-from simple_raytracer_tpu.io.image import save_image
+from simple_raytracer.config import default_config, CameraConfig, LightConfig
+from simple_raytracer.render.renderer import render_radiance
+from simple_raytracer.render import integrator
+from simple_raytracer.scene.generated import (leaf_texture,
+                                              set_planar_texture,
+                                              uv_sphere_mesh)
+from simple_raytracer.scene.scene import SceneManager
+import simple_raytracer.scene.transforms as T
+from simple_raytracer.io.image import save_image
 
 OUT = os.path.join(os.path.dirname(__file__), "out")
 
 
 def main():
     os.makedirs(OUT, exist_ok=True)
-    sm = SceneManager(root="/root/reference")
-    sm.load_obj_file("/root/reference/obj/tree/tree.obj", key="tree")
-    sm.transform_triangles("tree", T.scale(0.035, 0.035, 0.035))
-    sm.transform_triangles("tree", T.rotate_x(float(np.radians(-90.0))))
-    sm.transform_triangles("tree", T.translate((0.0, 12.0, 40.0)))
+    sm = SceneManager()
+    sm.add_mesh("tree", uv_sphere_mesh())
+    set_planar_texture(sm, "tree", "leaves", leaf_texture(), axes=(0, 1))
+    sm.transform_triangles("tree", T.translate((0.0, 2.0, 40.0))
+                           @ T.scale(5.0, 5.0, 5.0))
     scene = jax.device_put(sm.build())
     cfg = default_config().replace(
-        camera=CameraConfig(width=96, height=72),
+        mode="bruteforce", camera=CameraConfig(width=96, height=72),
         light=LightConfig(enable_shadows=False))
     light = jnp.array([500.0, -300.0, -200.0], jnp.float32)
 

@@ -22,12 +22,14 @@ from jax.sharding import PartitionSpec as P  # noqa: E402
 sys.path.insert(0, os.path.dirname(__file__))
 sys.path.insert(0, os.path.join(os.path.dirname(__file__), ".."))
 
+from simple_raytracer.scene.generated import cube_mesh  # noqa: E402
+
 
 def main():
     coordinator, num_procs, proc_id = (
         sys.argv[1], int(sys.argv[2]), int(sys.argv[3]))
 
-    from simple_raytracer_tpu.dist.multihost import (init_distributed,
+    from simple_raytracer.dist.multihost import (init_distributed,
                                                      global_mesh)
     multi = init_distributed(coordinator=coordinator,
                              num_processes=num_procs, process_id=proc_id)
@@ -36,14 +38,14 @@ def main():
 
     mesh = global_mesh(("dp",))
 
-    from simple_raytracer_tpu.config import default_config, CameraConfig
-    from simple_raytracer_tpu.render.renderer import render_flat
-    from simple_raytracer_tpu.ops.camera import primary_rays
-    from simple_raytracer_tpu.scene.scene import SceneManager
-    import simple_raytracer_tpu.scene.transforms as T
+    from simple_raytracer.config import default_config, CameraConfig
+    from simple_raytracer.render.renderer import render_flat
+    from simple_raytracer.ops.camera import primary_rays
+    from simple_raytracer.scene.scene import SceneManager
+    import simple_raytracer.scene.transforms as T
 
-    sm = SceneManager(root="/root/reference")
-    sm.load_obj_file("/root/reference/cube.obj", key="cube")
+    sm = SceneManager()
+    sm.add_mesh("cube", cube_mesh())
     sm.set_color("cube", (0.2, 0.8, 0.3))
     sm.transform_triangles(
         "cube", T.translate((0.0, 0.0, 60.0)) @ T.scale(10.0, 10.0, 10.0))

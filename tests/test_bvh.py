@@ -6,12 +6,13 @@ import jax
 import jax.numpy as jnp
 import pytest
 
-from simple_raytracer_tpu import RenderConfig, CameraConfig, SceneManager, render
-from simple_raytracer_tpu.accel import bvh as bvh_mod
-from simple_raytracer_tpu.accel import prepare, traverse
-from simple_raytracer_tpu.render.renderer import brute_force_hits
-from simple_raytracer_tpu.scene import transforms as T
-from tests.conftest import needs_assets, reference_asset
+from simple_raytracer import RenderConfig, CameraConfig, SceneManager, render
+from simple_raytracer.accel import bvh as bvh_mod
+from simple_raytracer.accel import prepare, traverse
+from simple_raytracer.render.renderer import brute_force_hits
+from simple_raytracer.scene import transforms as T
+from simple_raytracer.scene.generated import blob_mesh, uv_sphere_mesh
+
 
 
 def _random_tris(rng, n, spread=10.0):
@@ -62,8 +63,8 @@ def test_single_triangle_object():
 
 def _manager_from_tris(verts_list):
     """Build a SceneManager directly from per-object [n,3,3] triangle arrays."""
-    from simple_raytracer_tpu.scene.obj_loader import MeshData
-    from simple_raytracer_tpu.scene.scene import _ObjectEntry
+    from simple_raytracer.scene.obj_loader import MeshData
+    from simple_raytracer.scene.scene import _ObjectEntry
     mgr = SceneManager()
     for k, v in enumerate(verts_list):
         n = v.shape[0]
@@ -106,7 +107,7 @@ def test_bvh_shadow_matches_bruteforce(rng):
         [_random_tris(rng, 16), _random_tris(rng, 16)]).build()
     cfg = RenderConfig(mode="bvh")
     prep = prepare(scene, cfg)
-    from simple_raytracer_tpu.render.renderer import brute_force_shadow
+    from simple_raytracer.render.renderer import brute_force_shadow
     R = 128
     point = jnp.asarray(rng.normal(size=(R, 3)).astype(np.float32) * 5)
     light = jnp.asarray(rng.normal(size=(R, 3)).astype(np.float32) * 20)
@@ -116,11 +117,11 @@ def test_bvh_shadow_matches_bruteforce(rng):
     assert np.array_equal(np.asarray(got), np.asarray(want))
 
 
-@needs_assets
 def test_bvh_image_equals_bruteforce_sphere():
-    mgr = SceneManager(root=reference_asset(""))
-    mgr.load_obj_file(reference_asset("sphere.obj"), key="sphere.obj")
-    mgr.transform_triangles("sphere.obj", T.translate([0.0, 6.0, 30.0]))
+    mgr = SceneManager()
+    mgr.add_mesh("sphere.obj", uv_sphere_mesh())
+    mgr.transform_triangles("sphere.obj", T.translate([0.0, 6.0, 30.0])
+                            @ T.scale(3.0, 3.0, 3.0))
     scene = mgr.build()
     cam = CameraConfig(width=64, height=64, focal=64.0)
     light = jnp.array([50.0, -30.0, -20.0])
@@ -129,13 +130,13 @@ def test_bvh_image_equals_bruteforce_sphere():
     assert np.array_equal(img_bf, img_bvh)
 
 
-@needs_assets
 def test_bvh_bunny_small_render():
-    """Bunny renders through the BVH at a small resolution (CPU sanity)."""
-    mgr = SceneManager(root=reference_asset(""))
-    mgr.load_obj_file(reference_asset("obj/stanford-bunny.obj"), key="bunny")
+    """The bunny stand-in (81,920 triangles) renders through the BVH at a
+    small resolution (CPU sanity)."""
+    mgr = SceneManager()
+    mgr.add_mesh("bunny", blob_mesh())
     mgr.set_color("bunny", (0.9, 0.9, 0.9))
-    mgr.transform_triangles("bunny", T.scale(50.0, 50.0, 50.0))
+    mgr.transform_triangles("bunny", T.scale(4.0, 4.0, 4.0))
     mgr.transform_triangles("bunny", T.rotate_x(np.radians(181.0)))
     mgr.transform_triangles("bunny", T.translate([0.0, 2.0, 30.0]))
     scene = mgr.build()
@@ -150,25 +151,25 @@ def test_bvh_bunny_small_render():
 def test_sah_split_hits_match_bruteforce(rng):
     """BVHConfig.split='sah' builds a different topology with the same
     candidate-completeness guarantee."""
-    from simple_raytracer_tpu.accel.bvh import build_bvh
+    from simple_raytracer.accel.bvh import build_bvh
     verts = rng.standard_normal((300, 3, 3)).astype(np.float32) * 3.0
     b = build_bvh(verts, 8, split="sah")
     assert sorted(b.perm.tolist()) == list(range(300))
     assert (b.leaf_count[b.leaf_count > 0] <= 8).all()
 
-    from simple_raytracer_tpu.config import default_config, BVHConfig
-    from simple_raytracer_tpu.accel.prepared import prepare
-    from simple_raytracer_tpu.accel.traverse import bvh_hits
-    from simple_raytracer_tpu.render.renderer import brute_force_hits
-    from simple_raytracer_tpu.scene.scene import SceneManager
-    sm = SceneManager(root="/root/reference")
-    sm.load_obj_file(reference_asset("sphere.obj"), key="s")
-    import simple_raytracer_tpu.scene.transforms as T
+    from simple_raytracer.config import default_config, BVHConfig
+    from simple_raytracer.accel.prepared import prepare
+    from simple_raytracer.accel.traverse import bvh_hits
+    from simple_raytracer.render.renderer import brute_force_hits
+    from simple_raytracer.scene.scene import SceneManager
+    sm = SceneManager()
+    sm.add_mesh("s", uv_sphere_mesh())
+    import simple_raytracer.scene.transforms as T
     sm.transform_triangles("s", T.translate((0.0, 2.0, 25.0)))
     scene = sm.build()
     cfg = default_config().replace(mode="bvh", bvh=BVHConfig(split="sah"))
     prep = prepare(scene, cfg)
-    from simple_raytracer_tpu.ops.camera import primary_rays
+    from simple_raytracer.ops.camera import primary_rays
     o, d = primary_rays(32, 24)
     o, d = o.reshape(-1, 3), d.reshape(-1, 3)
     t_ref, _ = jax.jit(lambda s, o, d: brute_force_hits(s, o, d))(

@@ -8,16 +8,15 @@ import jax
 import jax.numpy as jnp
 import pytest
 
-from simple_raytracer_tpu.config import (default_config, AnimationConfig,
+from simple_raytracer.config import (default_config, AnimationConfig,
                                          CameraConfig)
-from simple_raytracer_tpu.driver.animation import (render_turntable,
+from simple_raytracer.driver.animation import (render_turntable,
                                                    frames_parallel)
-from simple_raytracer_tpu.dist import make_mesh
-from simple_raytracer_tpu.io.image import write_bmp
-from simple_raytracer_tpu.render.renderer import render
-from simple_raytracer_tpu.scene import catalog
+from simple_raytracer.dist import make_mesh
+from simple_raytracer.io.image import write_bmp
+from simple_raytracer.render.renderer import render
+from simple_raytracer.scene import catalog
 
-ROOT = "/root/reference"
 CAM = CameraConfig(width=60, height=40)
 
 
@@ -29,10 +28,10 @@ def test_world_space_camera_matches_bake():
     angle = 40.0
     cfg = default_config().replace(camera=CAM)
 
-    sm_b, _, light_b = catalog.four_cubes(ROOT, angle, bake_view=True)
+    sm_b, _, light_b = catalog.four_cubes(angle, bake_view=True)
     img_bake = np.asarray(render(sm_b.build(), cfg, light_b))
 
-    sm_w, view, light_w = catalog.four_cubes(ROOT, angle, bake_view=False)
+    sm_w, view, light_w = catalog.four_cubes(angle, bake_view=False)
     img_world = np.asarray(render(sm_w.build(), cfg, light_w,
                                   view_matrix=view))
 
@@ -43,7 +42,7 @@ def test_world_space_camera_matches_bake():
 
 
 def test_one_cube_scene_has_default_red():
-    sm, view, light = catalog.one_cube(ROOT, 0.0, bake_view=False)
+    sm, view, light = catalog.one_cube(0.0, bake_view=False)
     assert sm.get_color("cube") == (1.0, 0.0, 0.0)      # Object.cpp:29 default
     scene = sm.build()
     assert scene.num_triangles == 12
@@ -52,9 +51,9 @@ def test_one_cube_scene_has_default_red():
 def test_instance_color_not_copied():
     """Reference quirk: instanced keys default to black objColors
     (simple_raytracer.cpp:573-574 copies only triangles+properties)."""
-    sm, _, _ = catalog.complex_scene(ROOT, 0.0, bake_view=False)
-    assert sm.get_color("cat1") == (0.0, 0.0, 0.0)
-    assert sm.objects["cat1"].specular == 0.0           # properties copied
+    sm, _, _ = catalog.complex_scene(0.0, bake_view=False)
+    assert sm.get_color("tree1") == (0.0, 0.0, 0.0)
+    assert sm.objects["tree1"].specular == 0.0          # properties copied
 
 
 def test_turntable_sweep_and_resume(tmp_path):
@@ -62,13 +61,13 @@ def test_turntable_sweep_and_resume(tmp_path):
     anim = AnimationConfig(start_deg=0.0, stop_deg=360.0, step_deg=120.0,
                            orbit_radius=100.0, camera_y=0.0, pitch_deg=0.0)
     out = str(tmp_path / "gen")
-    files = render_turntable("four_cubes", ROOT, cfg, anim, out_dir=out,
+    files = render_turntable("four_cubes", cfg, anim, out_dir=out,
                              fmt="bmp", metrics_path=str(tmp_path / "m.jsonl"))
     assert len(files) == 3
     assert all(os.path.exists(f) for f in files)
     mtimes = {f: os.path.getmtime(f) for f in files}
     # resume: nothing re-rendered
-    files2 = render_turntable("four_cubes", ROOT, cfg, anim, out_dir=out,
+    files2 = render_turntable("four_cubes", cfg, anim, out_dir=out,
                               fmt="bmp")
     assert files2 == files
     assert all(os.path.getmtime(f) == mtimes[f] for f in files)
@@ -76,7 +75,7 @@ def test_turntable_sweep_and_resume(tmp_path):
 
 def test_frame_parallel_matches_serial():
     cfg = default_config().replace(camera=CAM)
-    sm, _, light = catalog.four_cubes(ROOT, 0.0, bake_view=False)
+    sm, _, light = catalog.four_cubes(0.0, bake_view=False)
     scene = sm.build()
     angles = [0.0, 45.0, 90.0, 135.0, 180.0, 225.0, 270.0, 315.0]
     views = np.stack([catalog.orbit_view(a, 100.0, 0.0, 0.0) for a in angles])
@@ -99,13 +98,15 @@ def test_bmp_writer_roundtrip(tmp_path):
 
 def test_complex_scene_end_to_end():
     """The reference's ACTIVE scene (simple_raytracer.cpp:553-618): ground
-    cube + bunny + 3 textured trees (+ 2 soft-failed cats), world-space
+    cube + bunny stand-in + 3 textured trees (canopy + trunk), world-space
     camera, BVH, hard shadows."""
-    import jax.numpy as jnp
-    sm, view, light = catalog.complex_scene(ROOT, 120.0, bake_view=False)
+    # 0 degrees: the narrow 90x60 view (focal 400) sees a tree and the
+    # bunny stand-in with its shadow
+    sm, view, light = catalog.complex_scene(0.0, bake_view=False)
     scene = sm.build()
-    assert scene.num_objects == 7          # cube + 2 cats + bunny + 3 trees
-    assert scene.num_triangles > 150_000
+    assert scene.num_objects == 8          # cube + bunny + 3 x (trunk, tree)
+    assert scene.num_triangles > 80_000
+    assert scene.has_textures
     cfg = default_config().replace(
         mode="bvh", camera=CameraConfig(width=90, height=60))
     img = np.asarray(render(scene, cfg, light, view_matrix=view))
@@ -124,8 +125,8 @@ def test_complex_scene_end_to_end():
 def test_frames_batched_chunking(monkeypatch):
     """Sweeps larger than FRAMES_PER_SWEEP split into fixed-size device
     programs; results must equal per-frame renders."""
-    from simple_raytracer_tpu.driver import animation as anim_mod
-    sm, _, light = catalog.four_cubes(ROOT, 0.0, bake_view=False)
+    from simple_raytracer.driver import animation as anim_mod
+    sm, _, light = catalog.four_cubes(0.0, bake_view=False)
     scene = sm.build()
     cfg = default_config().replace(camera=CameraConfig(width=48, height=32))
     angles = [0.0, 30.0, 60.0, 90.0, 120.0]

@@ -6,7 +6,7 @@ import numpy as np
 import pytest
 from PIL import Image
 
-from simple_raytracer_tpu.cli import main
+from simple_raytracer.cli import main
 
 
 def test_cli_render(tmp_path):
@@ -46,15 +46,21 @@ def test_cli_train_checkpoint(tmp_path):
     assert rc == 0
 
 
-def test_cli_default_mode_is_tiled(tmp_path):
-    """The shipped default must be the benchmarked production path
-    (mode=tiled) — VERDICT r4 #8: every BENCH number is tiled, so
-    `python -m simple_raytracer_tpu render` with no flags has to hit it."""
+def test_cli_default_mode_is_tiled(tmp_path, monkeypatch):
+    """`python -m simple_raytracer render` with no mode flag takes the
+    fast path of the platform: mode 'auto' is the Triton walk ('tiled')
+    on a GPU and the jnp oracle on the CPU, where it still renders."""
     import argparse
-    from simple_raytracer_tpu import cli
+    import jax
+    from simple_raytracer import cli
     p = argparse.ArgumentParser()
     cli._add_render_flags(p)
-    assert p.parse_args([]).mode == "tiled"
+    args = p.parse_args([])
+    assert args.mode == "auto"
+    assert cli._config_from(args).mode == "bruteforce"
+    with monkeypatch.context() as m:
+        m.setattr(jax, "default_backend", lambda: "gpu")
+        assert cli._config_from(args).mode == "tiled"
 
     out = str(tmp_path / "g.png")
     rc = main(["render", "--scene", "four_cubes", "--width", "80",

@@ -1,8 +1,8 @@
 """The five BASELINE.json benchmark configs as (scaled-down) golden tests.
 
 Each config renders through at least two independent implementations
-(bruteforce jnp oracle vs BVH vs tiled Pallas) and must agree pixel-for-pixel
-(minus rare quantization flips at fp-tie edges).
+(bruteforce jnp oracle vs BVH vs the tiled walk) and must agree
+pixel-for-pixel (minus rare quantization flips at fp-tie edges).
 """
 
 import numpy as np
@@ -10,16 +10,19 @@ import jax
 import jax.numpy as jnp
 import pytest
 
-from simple_raytracer_tpu.config import (default_config, CameraConfig,
+from simple_raytracer.config import (default_config, CameraConfig,
                                          LightConfig)
-from simple_raytracer_tpu.render.renderer import render
-from simple_raytracer_tpu.scene.scene import SceneManager
-from simple_raytracer_tpu.scene import catalog
-import simple_raytracer_tpu.scene.transforms as T
+from simple_raytracer.render.renderer import render
+from simple_raytracer.scene.scene import SceneManager
+from simple_raytracer.scene import catalog
+import simple_raytracer.scene.transforms as T
+from simple_raytracer.scene.generated import (blob_mesh, cube_mesh,
+                                                  leaf_texture,
+                                                  set_planar_texture,
+                                                  uv_sphere_mesh)
 
-from conftest import reference_asset
+from conftest import INTERPRET
 
-ROOT = "/root/reference"
 LIGHT = jnp.array([500.0, -300.0, -200.0], jnp.float32)
 
 
@@ -30,9 +33,10 @@ def _agree(img_a, img_b, frac=0.995):
 
 def test_config1_sphere_phong():
     """Config 1: single sphere + 1 point light, Phong, no BVH needed."""
-    sm = SceneManager(root=ROOT)
-    sm.load_obj_file(reference_asset("sphere.obj"), key="s")
-    sm.transform_triangles("s", T.translate((0.0, 6.0, 30.0)))
+    sm = SceneManager()
+    sm.add_mesh("s", uv_sphere_mesh())
+    sm.transform_triangles("s", T.translate((0.0, 6.0, 30.0))
+                           @ T.scale(3.0, 3.0, 3.0))
     scene = sm.build()
     cam = CameraConfig(width=128, height=128)
     img_bf = np.asarray(render(scene, default_config().replace(
@@ -45,19 +49,19 @@ def test_config1_sphere_phong():
 
 
 def test_config2_textured_mesh():
-    """Config 2: texture-mapped mesh with baked texel UVs (the committed
-    cube.mtl is absent upstream, so the tree's oak texture is the
-    texture-mapping asset)."""
-    sm = SceneManager(root=ROOT)
-    sm.load_obj_file(reference_asset("obj/tree/tree.obj"), key="tree")
-    sm.transform_triangles("tree", T.scale(0.03, 0.03, 0.03))
-    sm.transform_triangles("tree", T.rotate_x(float(np.radians(-90.0))))
-    sm.transform_triangles("tree", T.translate((0.0, 10.0, 40.0)))
+    """Config 2: texture-mapped mesh with baked texel UVs (a sphere with the
+    seeded foliage texture, the stand-in for the reference's oak tree)."""
+    sm = SceneManager()
+    sm.add_mesh("tree", uv_sphere_mesh())
+    set_planar_texture(sm, "tree", "leaves", leaf_texture(), axes=(0, 1))
+    sm.transform_triangles("tree", T.scale(6.0, 6.0, 6.0))
+    sm.transform_triangles("tree", T.translate((0.0, 3.0, 40.0)))
     scene = sm.build()
     assert int(np.asarray(scene.tri_tex).max()) >= 0    # textured tris exist
     cam = CameraConfig(width=96, height=96)
     cfg_bf = default_config().replace(mode="bruteforce", camera=cam)
-    cfg_tl = default_config().replace(mode="tiled", camera=cam)
+    cfg_tl = default_config().replace(mode="tiled", camera=cam,
+                                      kernel=INTERPRET)
     img_bf = np.asarray(render(scene, cfg_bf, LIGHT))
     img_tl = np.asarray(render(scene, cfg_tl, LIGHT))
     diff = np.abs(img_bf.astype(int) - img_tl.astype(int))
@@ -69,24 +73,26 @@ def test_config2_textured_mesh():
 
 
 def test_config3_bunny_bvh_shadows():
-    """Config 3: stanford-bunny with BVH traversal + hard shadows."""
-    sm = SceneManager(root=ROOT)
-    sm.load_obj_file(reference_asset("obj/stanford-bunny.obj"), key="bunny")
+    """Config 3: the bunny stand-in (81,920 triangles) with BVH traversal +
+    hard shadows."""
+    sm = SceneManager()
+    sm.add_mesh("bunny", blob_mesh())
     sm.set_color("bunny", (0.9, 0.9, 0.9))
-    # bunny mesh spans ~[-0.1,0.2] per axis; at 50x it is ~8 units tall.
-    # center it in the small frustum (visible y at z=60 is about +-7)
-    sm.transform_triangles("bunny", T.scale(50.0, 50.0, 50.0))
+    # the blob has radius ~1; at 4x it is ~8 units tall, centred in the
+    # small frustum (visible y at z=60 is about +-7), resting on the ground
+    sm.transform_triangles("bunny", T.scale(4.0, 4.0, 4.0))
     sm.transform_triangles("bunny", T.rotate_y(float(np.radians(180.0))))
-    sm.transform_triangles("bunny", T.translate((0.0, -5.5, 60.0)))
+    sm.transform_triangles("bunny", T.translate((0.0, 1.0, 60.0)))
     # ground slab below (image +y is down) so the bunny shadows something
-    sm.load_obj_file(reference_asset("cube.obj"), key="ground")
+    sm.add_mesh("ground", cube_mesh())
     sm.set_color("ground", (0.0, 1.0, 0.0))
     sm.transform_triangles("ground", T.scale(35.0, 1.5, 35.0))
     sm.transform_triangles("ground", T.translate((0.0, 7.0, 60.0)))
     scene = sm.build()
     cam = CameraConfig(width=96, height=96)
     cfg_bvh = default_config().replace(mode="bvh", camera=cam)
-    cfg_tl = default_config().replace(mode="tiled", camera=cam)
+    cfg_tl = default_config().replace(mode="tiled", camera=cam,
+                                      kernel=INTERPRET)
     img_bvh = np.asarray(render(scene, cfg_bvh, LIGHT))
     img_tl = np.asarray(render(scene, cfg_tl, LIGHT))
     diff = np.abs(img_bvh.astype(int) - img_tl.astype(int))
@@ -103,12 +109,12 @@ def test_config4_soft_shadows_multiobject():
     """Config 4: multi-object scene, soft shadows (multi-sample) + tone map.
     The cumulative-jitter sampling (simple_raytracer.cpp:362-383) and /5
     dimming (:369) must agree between oracle and BVH."""
-    sm = SceneManager(root=ROOT)
-    sm.load_obj_file(reference_asset("cube.obj"), key="ground")
+    sm = SceneManager()
+    sm.add_mesh("ground", cube_mesh())
     sm.set_color("ground", (0.0, 1.0, 0.0))
     sm.transform_triangles("ground", T.scale(20.0, 3.0, 20.0))
     sm.transform_triangles("ground", T.translate((0.0, 18.0, 60.0)))
-    sm.load_obj_file(reference_asset("sphere.obj"), key="s")
+    sm.add_mesh("s", uv_sphere_mesh())
     sm.set_color("s", (0.9, 0.3, 0.2))
     sm.transform_triangles("s", T.scale(3.0, 3.0, 3.0))
     sm.transform_triangles("s", T.translate((0.0, 5.0, 60.0)))
@@ -132,9 +138,9 @@ def test_config4_soft_shadows_multiobject():
 def test_config5_animated_sweep_sharded():
     """Config 5: animated camera sweep, frames sharded over the device mesh
     (frame-parallel PP mode); each frame equals its serial render."""
-    from simple_raytracer_tpu.driver.animation import frames_parallel
-    from simple_raytracer_tpu.dist import make_mesh
-    sm, _, light = catalog.four_cubes(ROOT, 0.0, bake_view=False)
+    from simple_raytracer.driver.animation import frames_parallel
+    from simple_raytracer.dist import make_mesh
+    sm, _, light = catalog.four_cubes(0.0, bake_view=False)
     scene = sm.build()
     cfg = default_config().replace(camera=CameraConfig(width=48, height=32))
     angles = np.arange(0.0, 360.0, 45.0)

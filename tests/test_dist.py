@@ -1,28 +1,31 @@
 """Distributed-path tests on the virtual 8-device CPU mesh (conftest forces
 XLA_FLAGS=--xla_force_host_platform_device_count=8): DP ray sharding, ring
 geometry sharding, and the sharded training step.  Identical code paths run on
-a real TPU slice."""
+a GPU mesh (python chip_smoke.py --cards 4)."""
 
 import numpy as np
 import jax
 import jax.numpy as jnp
 from jax.sharding import PartitionSpec as P
 
-from simple_raytracer_tpu.config import default_config
-from simple_raytracer_tpu.dist import (make_mesh, render_sharded,
+from simple_raytracer.config import default_config
+from simple_raytracer.dist import (make_mesh, render_sharded,
                                        make_train_step, extract_params)
-from simple_raytracer_tpu.dist import ring as ring_mod
-from simple_raytracer_tpu.render.renderer import render, render_flat
-from simple_raytracer_tpu.scene.scene import SceneManager
+from simple_raytracer.dist import ring as ring_mod
+from simple_raytracer.render.renderer import render, render_flat
+from simple_raytracer.scene.scene import SceneManager
+from simple_raytracer.scene.generated import cube_mesh
 
-from conftest import reference_asset
+from conftest import INTERPRET
+
+
 
 
 def _cube_scene():
-    sm = SceneManager(root="/root/reference")
-    sm.load_obj_file(reference_asset("cube.obj"), key="cube")
+    sm = SceneManager()
+    sm.add_mesh("cube", cube_mesh())
     sm.set_color("cube", (0.2, 0.8, 0.3))
-    import simple_raytracer_tpu.scene.transforms as T
+    import simple_raytracer.scene.transforms as T
     m = T.translate((0.0, 0.0, 60.0)) @ T.scale(10.0, 10.0, 10.0)
     sm.transform_triangles("cube", m)
     return sm.build()
@@ -56,7 +59,7 @@ def test_dp_sharded_tiled_mode():
     shard_map (dist/sharding.py:90-93 routes mode='tiled')."""
     scene = _cube_scene()
     cfg = default_config().replace(
-        mode="tiled",
+        mode="tiled", kernel=INTERPRET,
         camera=default_config().camera.__class__(width=64, height=48))
     light = jnp.array([100.0, -100.0, -50.0])
     ref = np.asarray(render(scene, cfg, light))
@@ -74,7 +77,7 @@ def test_ring_geometry_sharded_matches_bruteforce():
     cfg = default_config().replace(
         camera=default_config().camera.__class__(width=32, height=16))
     light = jnp.array([100.0, -100.0, -50.0], jnp.float32)
-    from simple_raytracer_tpu.ops.camera import primary_rays
+    from simple_raytracer.ops.camera import primary_rays
     o, d = primary_rays(32, 16)
     o, d = o.reshape(-1, 3), d.reshape(-1, 3)
 
@@ -109,7 +112,7 @@ def test_train_step_sharded_matches_unsharded_and_descends():
         light=default_config().light.__class__(enable_shadows=False))
     light = jnp.array([100.0, -100.0, -50.0], jnp.float32)
 
-    from simple_raytracer_tpu.render.renderer import render_radiance
+    from simple_raytracer.render.renderer import render_radiance
     target, hit = render_radiance(scene, cfg, light)
     target = jnp.where(hit[..., None], target, 0.0)
 
@@ -144,7 +147,7 @@ def test_render_geometry_sharded_api_matches_single():
     light = jnp.array([100.0, -100.0, -50.0])
     ref = np.asarray(render(scene, cfg, light))
     mesh = make_mesh(8, ("gp",))
-    from simple_raytracer_tpu.dist.ring import render_geometry_sharded
+    from simple_raytracer.dist.ring import render_geometry_sharded
     img = np.asarray(render_geometry_sharded(scene, cfg, light, mesh))
     same = (ref == img).all(axis=-1)
     assert same.mean() > 0.995, same.mean()
@@ -157,7 +160,7 @@ def test_render_composed_dp_gp_matches_single():
     light = jnp.array([100.0, -100.0, -50.0])
     ref = np.asarray(render(scene, cfg, light))
     mesh = make_mesh(8, ("dp", "gp"), shape=(4, 2))
-    from simple_raytracer_tpu.dist.ring import render_composed
+    from simple_raytracer.dist.ring import render_composed
     img = np.asarray(render_composed(scene, cfg, light, mesh))
     same = (ref == img).all(axis=-1)
     assert same.mean() > 0.995, same.mean()
@@ -171,7 +174,7 @@ def test_ring_overlap_schedule_bit_equal_to_plain():
     order changes."""
     scene = _cube_scene()
     cfg = default_config()
-    from simple_raytracer_tpu.ops.camera import primary_rays
+    from simple_raytracer.ops.camera import primary_rays
     o, d = primary_rays(32, 16)
     o, d = o.reshape(-1, 3), d.reshape(-1, 3)
     light = jnp.array([100.0, -100.0, -50.0], jnp.float32)

@@ -1,289 +1,121 @@
-"""Density-gate regression tests.
-
-The tiled path picks tile/shadow-tile/cull granularities adaptively by scene
-density; every threshold is a hardware-measured tradeoff (DESIGN.md).  These
-tests pin the DOCUMENTED configuration choices for representative triangle
-counts so a future retune is a deliberate, test-visible change — VERDICT r2
-weak #2: the gates were two-scene point tunings with nothing asserting the
-gate picks the measured-faster configuration.
-"""
+"""The tiled path's shape rules: pixel tile, walk tile, shadow tiles, the
+soft-shadow cull, and where the defaults live (config.KernelConfig)."""
 
 import types
 
-from simple_raytracer_tpu.config import default_config
-from simple_raytracer_tpu.kernels import tiled, tiled_t
+import jax
+import jax.numpy as jnp
 
+from simple_raytracer.config import default_config, KernelConfig
+from simple_raytracer.kernels import tiled
+from simple_raytracer.scene.generated import cube_mesh, uv_sphere_mesh
 
-def _prep_stub(num_tris, block_size=32):
-    """Minimal duck-typed PreparedScene for the gate functions (they read
-    only block_min.shape[0] * block_size)."""
-    import numpy as np
-    nb = -(-num_tris // block_size)
-    return types.SimpleNamespace(
-        block_min=np.zeros((nb, 3), np.float32),
-        block_size=block_size)
-
-
-BUNNY = 69_463          # bench flagship (bunny + ground slab)
-COMPLEX = 177_000       # reference headline scene (trees + bunny + ground)
+from conftest import INTERPRET
 
 
 def test_tile_px_gate():
-    """Round-3 ladder (projective apex cull makes the kernel per-tile-
-    fixed-cost bound): 64px tiles for bunny-class scenes (26.2 vs 16px's
-    38.7 ms), 32px for denser scenes (complex 56.5 vs 64px's 75.4) —
-    measurements in kernels/tiled.py:effective_tile_px."""
+    """Square 16px pixel tiles (256 rays) for every scene; an explicit
+    tile_px wins."""
     cfg = default_config()
-    assert cfg.tile_px == 0                       # adaptive is the default
-    assert tiled.effective_tile_px(cfg, BUNNY) == 64
-    assert tiled.effective_tile_px(cfg, 131_072) == 64    # boundary
-    assert tiled.effective_tile_px(cfg, 131_073) == 32
-    assert tiled.effective_tile_px(cfg, COMPLEX) == 32
-    assert tiled.effective_tile_px(cfg, 1 << 20) == 32
-    # explicit override wins
-    assert tiled.effective_tile_px(cfg.replace(tile_px=16), BUNNY) == 16
+    assert cfg.tile_px == 0
+    for tris in (12, 81_932, 1 << 22):
+        assert tiled.effective_tile_px(cfg, tris) == 16
+    assert tiled.effective_tile_px(cfg.replace(tile_px=8)) == 8
 
 
 def test_shadow_tile_gate():
-    """256-ray shadow sub-tiles only for DENSE scenes (complex occlusion
-    121 -> 88 ms); the bunny keeps the full pixel tile (256 regresses it
-    118 -> 135) — config.shadow_tile, kernels/tiled.py:_shadow_tile."""
-    cfg = default_config()
-    assert cfg.shadow_tile == 0
-    tile = 32 * 32
-    assert tiled._shadow_tile(cfg, tile, _prep_stub(BUNNY)) == tile
-    assert tiled._shadow_tile(cfg, tile, _prep_stub(COMPLEX)) == 256
-    assert tiled._shadow_tile(cfg, tile, _prep_stub(131_072)) == tile  # bnd
-    assert tiled._shadow_tile(cfg, tile, _prep_stub(131_073)) == 256
-    # never split below the tile itself
-    assert tiled._shadow_tile(cfg, 256, _prep_stub(COMPLEX)) == 256
-    # explicit override wins
-    assert tiled._shadow_tile(cfg.replace(shadow_tile=512), tile,
-                              _prep_stub(BUNNY)) == 512
+    """Hard shadows walk the nearest pass's tiles; the folded S-sample pass
+    packs tile // S points x S samples into one walk tile, padded up to a
+    power of two."""
+    assert tiled._fold_shape(128, 16) == (8, 128, 128)
+    assert tiled._fold_shape(128, 4) == (32, 128, 128)
+    assert tiled._fold_shape(128, 3) == (42, 126, 128)
+    assert tiled._fold_shape(128, 200) == (1, 200, 256)
+    for tile in (64, 128, 256):
+        for S in range(1, 40):
+            ts, rows, kt = tiled._fold_shape(tile, S)
+            assert rows == S * ts <= kt and kt & (kt - 1) == 0
 
 
 def test_hourglass_gate(monkeypatch):
-    """Apex-aware shadow culling only for dense scenes (complex occlusion
-    57.2 -> 14.1 ms; the bunny LOSES ~2.7 ms to the 2x cull arithmetic) —
-    tiled_t._hourglass_for, DESIGN.md round-2 continuation."""
-    monkeypatch.delenv("SRT_HOURGLASS", raising=False)
-    assert not tiled_t._hourglass_for(_prep_stub(BUNNY))
-    assert tiled_t._hourglass_for(_prep_stub(COMPLEX))
-    assert not tiled_t._hourglass_for(_prep_stub(131_072))   # boundary
-    assert tiled_t._hourglass_for(_prep_stub(131_073))
-    # env forces both ways
-    monkeypatch.setenv("SRT_HOURGLASS", "1")
-    assert tiled_t._hourglass_for(_prep_stub(BUNNY))
-    monkeypatch.setenv("SRT_HOURGLASS", "0")
-    assert not tiled_t._hourglass_for(_prep_stub(COMPLEX))
+    """Hard shadows (one shared light) take the projective light-apex
+    cull; soft shadows (S lights per point) take the apex-aware hourglass
+    cull instead; neither ever drops an occluder (both match brute force
+    in tests/test_tiled.py)."""
+    from simple_raytracer.accel.prepared import prepare
+    from simple_raytracer.scene.scene import SceneManager
+    import simple_raytracer.scene.transforms as T
+    sm = SceneManager()
+    sm.add_mesh("cube", cube_mesh())
+    sm.transform_triangles("cube", T.translate((0.0, 5.0, 60.0))
+                           @ T.scale(5.0, 5.0, 5.0))
+    sm.add_mesh("s", uv_sphere_mesh())
+    sm.transform_triangles("s", T.translate((0.0, -4.0, 60.0)))
+    prep = prepare(sm.build(), default_config())
+    seen = []
+    orig = tiled.cull
+
+    def spy(*a, **k):
+        seen.append((k.get("hourglass", False), k.get("apex_rev", False)))
+        return orig(*a, **k)
+    monkeypatch.setattr(tiled, "cull", spy)
+    p = jnp.tile(jnp.asarray([[0.0, 0.0, 55.0]]), (512, 1))
+    light = jnp.broadcast_to(jnp.asarray([500.0, -300.0, -200.0]), p.shape)
+    so = jnp.zeros((512,), jnp.int32)
+    tiled.tiled_shadow_fn(prep, 128, 1e-12, kernel=INTERPRET)(p, light, so)
+    assert seen == [(False, True)]
+    tiled.tiled_shadow_fn(prep, 128, 1e-12, num_samples=4,
+                          kernel=INTERPRET)(p, light, so)
+    assert seen[1] == (True, False)
+    tiled.tiled_shadow_fn(prep, 128, 1e-12, kernel=INTERPRET,
+                          shared_light=False)(p, light, so)
+    assert seen[2] == (False, False)
 
 
 def test_hit_tile_gate():
-    """hit_tile decouples the nearest-pass ray chunk from the pixel tile;
-    default 0 keeps the full tile (128 measured worse, 512 a wash)."""
+    """The walk tile is kernel.ray_tile consecutive rays of the tile-major
+    stream, or the whole pixel tile when that is smaller."""
     cfg = default_config()
-    assert cfg.hit_tile == 0
-    assert tiled._hit_tile(cfg, 1024) == 1024
-    assert tiled._hit_tile(cfg.replace(hit_tile=256), 1024) == 256
-    assert tiled._hit_tile(cfg.replace(hit_tile=2048), 1024) == 1024
-
-
-def test_stack_parts_choice():
-    """prepare() picks 6-product (f32-grade) stacking unless that alone
-    would evict a residency-eligible scene from VMEM, then 3 (tri-grade):
-    accel/prepared.py.  Exercised via the env override + size arithmetic."""
-    import numpy as np
-    from simple_raytracer_tpu.accel.prepared import (pack_blocks_stacked_np,
-                                                     STACK_PATTERNS)
-    v = np.random.RandomState(0).randn(64, 3, 3).astype(np.float32)
-    for parts, rows in ((3, 32), (6, 64)):
-        g = pack_blocks_stacked_np(v, 32, parts)
-        assert g.shape[0] == rows and str(g.dtype) == "bfloat16"
-        assert len(STACK_PATTERNS[parts]) == parts
-    # reconstruction: the stacked bands sum back to ~the f32 gram product
-    from simple_raytracer_tpu.accel.prepared import pack_blocks_np
-    gt = pack_blocks_np(v, 32, pad_blocks=0)[:10]        # [10, lanes] f32
-    g6 = pack_blocks_stacked_np(v, 32, 6, pad_blocks=0)
-    f = np.random.RandomState(1).randn(10).astype(np.float32)
-    from simple_raytracer_tpu.kernels.tiled_t import _split3
-    import jax.numpy as jnp
-    fh, fm, fl = map(np.asarray, _split3(jnp.asarray(f)))
-    fpart = {"h": fh, "m": fm, "l": fl}
-    fs = np.concatenate([fpart[fp] for (_g, fp) in STACK_PATTERNS[6]])
-    fs = np.concatenate([fs, np.zeros(g6.shape[0] - fs.size, fs.dtype)])
-    ref = f @ gt
-    got = fs.astype(np.float32) @ g6.astype(np.float32)
-    err = np.abs(got - ref)
-    mass = np.abs(fs.astype(np.float32))[None] @ np.abs(
-        g6.astype(np.float32))
-    assert (err <= 2.0 ** -20 * (mass[0] + 1e-30) + 1e-12).all()
-    # tri-grade SLICE invariant (kernels/tiled_t._operands max_parts=3):
-    # rows [:30] of the 6-part operand ARE the 3-part operand, and a 3-part
-    # F stack zero-pads rows 30-31, so gram_s[:32] x F3 == the full 3-part
-    # contraction
-    g3 = pack_blocks_stacked_np(v, 32, 3, pad_blocks=0)
-    assert np.array_equal(np.asarray(g6[:30]), np.asarray(g3[:30]))
-    assert STACK_PATTERNS[6][:3] == STACK_PATTERNS[3]
-    fs3 = np.concatenate([fpart[fp] for (_g, fp) in STACK_PATTERNS[3]])
-    fs3 = np.concatenate([fs3, np.zeros(2, fs3.dtype)])
-    sliced = fs3.astype(np.float32) @ g6[:32].astype(np.float32)
-    full3 = fs3.astype(np.float32) @ g3.astype(np.float32)
-    assert np.array_equal(sliced, full3)
+    assert cfg.kernel.ray_tile == 128
+    assert tiled._hit_tile(cfg, 256) == 128
+    assert tiled._hit_tile(cfg, 64) == 64
+    cfg256 = cfg.replace(kernel=KernelConfig(ray_tile=256))
+    assert tiled._hit_tile(cfg256, 1024) == 256
 
 
 def test_kernel_config_is_the_source_of_tuning_defaults():
-    """VERDICT r3 weak #6: the measured-winning kernel tuning must live in
-    config.py (KernelConfig, cited) with SRT_* env vars as overrides —
-    a fresh process with NO env vars must reproduce the BENCH numbers
-    from config alone.  Run the correspondence check in a clean
-    subprocess (this process may carry SRT_* from the test environment),
-    and an override check with one env var set."""
+    """The walk's shape comes from KernelConfig alone: the wrapper
+    arguments follow its fields, and no environment variable of the
+    package changes them (the only one left selects the host BVH
+    builder)."""
     import os
-    import subprocess
-    import sys
-
-    prog = (
-        "from simple_raytracer_tpu.config import KernelConfig\n"
-        "import simple_raytracer_tpu.kernels.tiled_t as t\n"
-        "kc = KernelConfig()\n"
-        "assert t.SUPER_ROWS == kc.super_rows, t.SUPER_ROWS\n"
-        "assert t.SUPER_ROWS_RES == kc.super_rows_res\n"
-        "assert t.SUPER_ROWS_AH == kc.super_rows_ah\n"
-        "assert t.WINDOW_BLOCKS == kc.window_blocks\n"
-        "assert t.WINDOW_BLOCKS_AH == kc.window_blocks_ah\n"
-        "assert t._MODE == kc.mt_precision\n"
-        "assert t.RES_LIMIT_MB == kc.resident_mb\n"
-        "assert t._OD_FEAT == kc.od_feat\n"
-        "assert t._IOTA_FEAT == kc.iota_feat\n"
-        "assert kc.attr_fetch is True\n"
-        "assert kc.px_mode == 'and'\n"
-        "assert kc.fused_phong is True and kc.fused_shadow is True\n"
-        "assert kc.maxv_big == 1000\n"
-        "print('ok')\n"
-    )
-    env = {k: v for k, v in os.environ.items()
-           if not k.startswith("SRT_")}
-    env["JAX_PLATFORMS"] = "cpu"
-    r = subprocess.run([sys.executable, "-c", prog], env=env,
-                       capture_output=True, text=True, timeout=300)
-    assert r.returncode == 0 and "ok" in r.stdout, (r.stdout, r.stderr)
-
-    env2 = dict(env)
-    env2["SRT_TILED_WB"] = "4"
-    prog2 = ("import simple_raytracer_tpu.kernels.tiled_t as t\n"
-             "assert t.WINDOW_BLOCKS == 4, t.WINDOW_BLOCKS\n"
-             "print('ok')\n")
-    r = subprocess.run([sys.executable, "-c", prog2], env=env2,
-                       capture_output=True, text=True, timeout=300)
-    assert r.returncode == 0 and "ok" in r.stdout, (r.stdout, r.stderr)
+    import re
+    prep = types.SimpleNamespace(block_size=32)
+    kc = KernelConfig()
+    assert tiled._walk_args(prep, 128, 1e-12, kc) == dict(
+        tile=128, window=kc.window_blocks * 32, chunk=kc.chunk,
+        eps=1e-12, num_warps=kc.num_warps, interpret=False)
+    assert (kc.ray_tile, kc.window_blocks, kc.chunk, kc.num_warps) == \
+        (128, 4, 32, 16)
+    # a chunk wider than the window is clamped to the window
+    narrow = tiled._walk_args(prep, 128, 1e-12,
+                              KernelConfig(window_blocks=1, chunk=64))
+    assert narrow["chunk"] == narrow["window"] == 32
+    root = os.path.join(os.path.dirname(os.path.dirname(
+        os.path.abspath(__file__))), "simple_raytracer")
+    knobs = set()
+    for dirpath, _, files in os.walk(root):
+        for f in files:
+            if f.endswith(".py"):
+                with open(os.path.join(dirpath, f)) as fh:
+                    knobs |= set(re.findall(r"SRT_[A-Z_]+", fh.read()))
+    assert knobs == {"SRT_NO_NATIVE"}, knobs
 
 
-def test_golden_mask_is_frozen_and_bounded():
-    """Guard the masked-golden tripwire's MASK (VERDICT r4 #4): bench.py's
-    golden_tiled_fg_tol2_masked reports agreement OUTSIDE
-    docs/golden_cat_mask.png, so a regenerated/bloated mask could silently
-    reabsorb the ~15% slack the tripwire exists to remove.  Pins:
-
-    * a checksum — regenerating the mask is a DELIBERATE act (update the
-      hash here and justify the new footprint);
-    * an area budget (the frozen mask covers 21.7% of the image / 27.1% of
-      the reference foreground: absent cats + their shadows + 2px dilation);
-    * near-zero overlap with the reference BACKGROUND, so the silhouette
-      band stays unmasked (the 0.32% present is dilation bleed at the
-      cat/sky-adjacent tree edges).
-    """
-    import hashlib
-    import os
-    pytest = __import__("pytest")
-    PIL = pytest.importorskip("PIL")
-    from PIL import Image
-    import numpy as np
-
-    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-    m = np.asarray(Image.open(os.path.join(root, "docs/golden_cat_mask.png")))
-    assert m.shape == (400, 600), m.shape
-    sha = hashlib.sha256(m.tobytes()).hexdigest()
-    assert sha == ("418e9052e3306600f6d93d52266045076306"
-                   "1cdf3a321b708d7f3155bfb48787"), sha
-    mask = m > 127
-    assert mask.mean() <= 0.22, mask.mean()
-
-    ref_path = "/root/reference/images/tone_mapping/0_5_divide.bmp"
-    if os.path.exists(ref_path):
-        ref = np.asarray(Image.open(ref_path).convert("RGB")).astype(int)
-        rbg = np.all(ref == np.array([173, 216, 230]), axis=-1)
-        assert (mask & rbg).mean() < 0.005, (mask & rbg).mean()
-        assert mask[~rbg].mean() < 0.28, mask[~rbg].mean()
-
-
-def test_effective_cull_maxv_density_adaptive():
-    """Dense scenes (wide plans) must fill the plan capacity with list-
-    mode entries (KernelConfig.maxv_big; round-5 complex A/B 15.86 ->
-    13.42 ms) while small scenes keep the shipped cull_maxv."""
-    import types
-    import numpy as np
-    from simple_raytracer_tpu.config import default_config
-    from simple_raytracer_tpu.kernels import tiled, tiled_t
-
-    cfg = default_config()
-    wb = tiled_t.WINDOW_BLOCKS
-    small = types.SimpleNamespace(block_min=np.zeros((wb * 100, 3)))
-    dense = types.SimpleNamespace(block_min=np.zeros((wb * 2782, 3)))
-    assert tiled.effective_cull_maxv(cfg, small) == cfg.cull_maxv
-    assert tiled.effective_cull_maxv(cfg, dense) == cfg.kernel.maxv_big
-    assert tiled.effective_cull_maxv(
-        cfg.replace(cull_maxv=0), dense) == 0
-
-
-def test_shipped_defaults_engage_the_fused_pipeline(monkeypatch):
-    """A fresh process with no SRT_* env must take the benchmarked fast
-    path end-to-end: in-kernel attr fetch + fused Phong (hits_shaded) AND
-    the fused from-t shadow (anyhit_from_t) for an eligible scene.  Guards
-    against a future edit silently dropping the production path while the
-    equality tests (which force the env) stay green."""
-    import numpy as np
-    import jax.numpy as jnp
-    from simple_raytracer_tpu.scene.scene import SceneManager
-    import simple_raytracer_tpu.scene.transforms as T
-    from simple_raytracer_tpu.accel.prepared import prepare
-    from simple_raytracer_tpu.config import CameraConfig
-    import simple_raytracer_tpu.kernels.tiled as tl
-    import simple_raytracer_tpu.kernels.tiled_t as tt
-    from simple_raytracer_tpu.ops.camera import primary_rays_tiled
-
-    for k in list(__import__("os").environ):
-        if k.startswith("SRT_"):
-            monkeypatch.delenv(k, raising=False)
-
-    sm = SceneManager(root="/root/reference")
-    sm.load_obj_file("/root/reference/cube.obj", key="cube")
-    sm.set_color("cube", (0.2, 0.8, 0.3))
-    sm.transform_triangles(
-        "cube", T.translate((0.0, 5.0, 80.0)) @ T.scale(15.0, 15.0, 15.0))
-    sm.load_obj_file("/root/reference/sphere.obj", key="s")
-    sm.set_color("s", (0.9, 0.9, 0.2))
-    sm.transform_triangles(
-        "s", T.translate((-12.0, -14.0, 60.0)) @ T.scale(6.0, 6.0, 6.0))
-    scene = sm.build()
-    cfg = default_config().replace(
-        mode="tiled",
-        camera=CameraConfig(width=64, height=64, focal=400.0))
-    prep = prepare(scene, cfg)
-    tpx = tl.effective_tile_px(cfg, prep.scene.verts.shape[0])
-    o, d, _, _ = primary_rays_tiled(64, 64, tpx, 400.0, False)
-    o, d = o.reshape(-1, 3), d.reshape(-1, 3)
-
-    called = []
-    orig_sh = tt.hits_shaded
-    orig_ah = tt.anyhit_from_t
-    monkeypatch.setattr(
-        tt, "hits_shaded",
-        lambda *a, **k: (called.append("shaded"), orig_sh(*a, **k))[1])
-    monkeypatch.setattr(
-        tt, "anyhit_from_t",
-        lambda *a, **k: (called.append("from_t"), orig_ah(*a, **k))[1])
-    rad, hit = tl.render_flat_tiled(
-        prep, cfg, o, d, jnp.asarray([500., -300., -200.]),
-        cam_spec=(None, 400.0, 64, 64, tpx))
-    assert "shaded" in called and "from_t" in called, called
-    assert np.asarray(hit).sum() > 500
+def test_default_mode_follows_platform(monkeypatch):
+    """mode='auto' (the default) is the Triton walk on a GPU and the jnp
+    oracle elsewhere; an explicit mode is kept."""
+    assert default_config().mode == "bruteforce"        # CPU test host
+    monkeypatch.setattr(jax, "default_backend", lambda: "gpu")
+    assert default_config().mode == "tiled"
+    assert default_config().replace(mode="bvh").mode == "bvh"

@@ -6,23 +6,26 @@ import jax
 import jax.numpy as jnp
 import pytest
 
-from simple_raytracer_tpu.config import default_config, CameraConfig, LightConfig
-from simple_raytracer_tpu.accel.prepared import prepare
-from simple_raytracer_tpu.diff import render_radiance_diff
-from simple_raytracer_tpu.scene.scene import SceneManager
-import simple_raytracer_tpu.scene.transforms as T
+from simple_raytracer.config import default_config, CameraConfig, LightConfig
+from simple_raytracer.accel.prepared import prepare
+from simple_raytracer.diff import render_radiance_diff
+from simple_raytracer.scene.scene import SceneManager
+import simple_raytracer.scene.transforms as T
+from simple_raytracer.scene.generated import cube_mesh, uv_sphere_mesh
 
-from conftest import reference_asset
+from conftest import INTERPRET
+
+
 
 
 def _scene():
-    sm = SceneManager(root="/root/reference")
-    sm.load_obj_file(reference_asset("cube.obj"), key="cube")
+    sm = SceneManager()
+    sm.add_mesh("cube", cube_mesh())
     sm.set_color("cube", (0.2, 0.8, 0.3))
     sm.transform_triangles(
         "cube", T.translate((0.0, 5.0, 80.0)) @ T.rotate_y(25.0)
         @ T.scale(15.0, 15.0, 15.0))
-    sm.load_obj_file(reference_asset("sphere.obj"), key="sphere")
+    sm.add_mesh("sphere", uv_sphere_mesh())
     sm.set_color("sphere", (0.9, 0.9, 0.2))
     sm.transform_triangles(
         "sphere", T.translate((-10.0, -15.0, 60.0)) @ T.scale(6.0, 6.0, 6.0))
@@ -84,7 +87,7 @@ def test_bvh_grads_match_bruteforce():
 
 def test_tiled_grads_match_bruteforce():
     scene = _scene()
-    cfg_tl = default_config().replace(mode="tiled", camera=CAM)
+    cfg_tl = default_config().replace(mode="tiled", kernel=INTERPRET, camera=CAM)
     prep = _prep_with(scene, cfg_tl)
     cfg_bf = cfg_tl.replace(mode="bruteforce")
 
@@ -151,8 +154,10 @@ def test_vertex_grad_finite_difference():
     checked = 0
     for o_idx in order:
         ti, vi, ci = np.unravel_index(o_idx, g[..., :3].shape)
-        fd1 = fd_at(ti, vi, ci, 1e-2)
-        fd2 = fd_at(ti, vi, ci, 1e-3)
+        # eps sized for f32: the loss is O(50), so a central difference at
+        # 1e-3 sits on its ~1e-3 rounding floor; 1e-2 clears it
+        fd1 = fd_at(ti, vi, ci, 3e-2)
+        fd2 = fd_at(ti, vi, ci, 1e-2)
         if abs(fd1 - fd2) > 0.1 * max(abs(fd1), abs(fd2), 1e-3):
             continue        # assignment edge: FD itself is ill-defined
         np.testing.assert_allclose(g[ti, vi, ci], fd2, rtol=5e-2, atol=2e-3)

@@ -11,33 +11,39 @@ import jax
 import jax.numpy as jnp
 import pytest
 
-from simple_raytracer_tpu.config import (default_config, CameraConfig,
+from simple_raytracer.config import (default_config, CameraConfig,
                                          LightConfig)
-from simple_raytracer_tpu.accel.prepared import prepare
-from simple_raytracer_tpu.diff import render_radiance_diff
-from simple_raytracer_tpu.render.renderer import render_radiance
-from simple_raytracer_tpu.scene.scene import SceneManager
-import simple_raytracer_tpu.scene.transforms as T
+from simple_raytracer.accel.prepared import prepare
+from simple_raytracer.diff import render_radiance_diff
+from simple_raytracer.render.renderer import render_radiance
+from simple_raytracer.scene.scene import SceneManager
+import simple_raytracer.scene.transforms as T
+from simple_raytracer.scene.generated import (cube_mesh, leaf_texture,
+                                                  set_planar_texture,
+                                                  uv_sphere_mesh)
 
-from conftest import reference_asset
+from conftest import INTERPRET
+
+
 
 LIGHT = jnp.array([500.0, -300.0, -200.0], jnp.float32)
 
 
 def _tree_scene():
-    """Textured scene: the oak tree (18k tris, real JPG texture atlas)."""
-    sm = SceneManager(root="/root/reference")
-    sm.load_obj_file(reference_asset("obj/tree/tree.obj"), key="tree")
-    sm.transform_triangles("tree", T.scale(0.035, 0.035, 0.035))
-    sm.transform_triangles("tree", T.rotate_x(float(np.radians(-90.0))))
-    sm.transform_triangles("tree", T.translate((0.0, 12.0, 40.0)))
+    """Textured scene: the tree stand-in (a sphere with the seeded foliage
+    texture atlas)."""
+    sm = SceneManager()
+    sm.add_mesh("tree", uv_sphere_mesh())
+    set_planar_texture(sm, "tree", "leaves", leaf_texture(), axes=(0, 1))
+    sm.transform_triangles("tree", T.scale(5.0, 5.0, 5.0))
+    sm.transform_triangles("tree", T.translate((0.0, 2.0, 40.0)))
     import jax as _jax
     return _jax.device_put(sm.build())
 
 
 def _shiny_scene():
-    sm = SceneManager(root="/root/reference")
-    sm.load_obj_file(reference_asset("sphere.obj"), key="s")
+    sm = SceneManager()
+    sm.add_mesh("s", uv_sphere_mesh())
     sm.set_color("s", (0.8, 0.2, 0.2))
     sm.transform_triangles(
         "s", T.translate((0.0, 0.0, 30.0)) @ T.scale(2.0, 2.0, 2.0))
@@ -115,20 +121,20 @@ def test_soft_shadow_multisample_grads_match_bruteforce(mode):
     brute-force AD grads.  The shadow predicate itself is boolean (zero
     gradient by construction in both paths — the documented visibility
     contract)."""
-    sm = SceneManager(root="/root/reference")
-    sm.load_obj_file(reference_asset("cube.obj"), key="cube")
+    sm = SceneManager()
+    sm.add_mesh("cube", cube_mesh())
     sm.set_color("cube", (0.2, 0.8, 0.3))
     sm.transform_triangles(
         "cube", T.translate((0.0, 5.0, 80.0)) @ T.rotate_y(25.0)
         @ T.scale(15.0, 15.0, 15.0))
-    sm.load_obj_file(reference_asset("cube.obj"), key="ground")
+    sm.add_mesh("ground", cube_mesh())
     sm.set_color("ground", (0.7, 0.6, 0.2))
     sm.transform_triangles(
         "ground", T.translate((0.0, 24.0, 80.0)) @ T.scale(30.0, 2.0, 30.0))
     scene = sm.build()
 
     cfg = default_config().replace(
-        mode=mode, camera=CameraConfig(width=48, height=32),
+        mode=mode, kernel=INTERPRET, camera=CameraConfig(width=48, height=32),
         light=LightConfig(enable_shadows=True, num_samples=4))
     prep = prepare(scene, cfg)
 

@@ -11,7 +11,7 @@ import numpy as np
 import jax.numpy as jnp
 import pytest
 
-from simple_raytracer_tpu.kernels.tiled import (_visibility,
+from simple_raytracer.kernels.tiled import (_visibility,
                                                 _visibility_hourglass)
 
 

@@ -4,7 +4,7 @@ AABB tests, against analytic cases and a numpy brute-force oracle."""
 import numpy as np
 import jax.numpy as jnp
 
-from simple_raytracer_tpu.ops import intersect as isect
+from simple_raytracer.ops import intersect as isect
 
 
 def _tri(p1, p2, p3):
@@ -47,7 +47,7 @@ def test_mt_parallel_ray_degenerate_det():
 
 def test_mt_homogeneous_w_divide():
     """Vertices stored homogeneous; reference divides by w (cpp:45-47)."""
-    from simple_raytracer_tpu.scene.scene import Scene
+    from simple_raytracer.scene.scene import Scene
     v4 = np.zeros((1, 3, 4), np.float32)
     v4[0, :, :3] = np.array([[-2, -2, 10], [2, -2, 10], [0, 2, 10]])
     v4[0, :, 3] = 2.0   # w=2 halves everything
@@ -58,7 +58,7 @@ def test_mt_homogeneous_w_divide():
 
 
 def test_gram_matches_direct_random(rng):
-    """The MXU Gram formulation must match direct MT on random rays/tris,
+    """The matmul (Gram) formulation must match direct MT on random rays/tris,
     for both origin-zero and general-origin rays."""
     T, R = 64, 128
     verts = jnp.asarray(rng.normal(size=(T, 3, 3)).astype(np.float32) * 3)

@@ -1,8 +1,7 @@
 """Executes the multi-process path for real: two CPU-backend processes join
 through ``jax.distributed.initialize`` (dist/multihost.py) on a local
 coordinator, build the global mesh, and render through shard_map with a psum
-checksum.  This is the DCN-bootstrap code a pod run uses — previously it was
-never executed by any test (VERDICT r1)."""
+checksum.  This is the bootstrap code a multi-host run uses."""
 
 import os
 import socket
@@ -14,10 +13,8 @@ import jax
 import jax.numpy as jnp
 import pytest
 
-from conftest import has_reference_assets
 
-pytestmark = pytest.mark.skipif(not has_reference_assets(),
-                                reason="reference assets not mounted")
+from simple_raytracer.scene.generated import cube_mesh
 
 
 def _free_port() -> int:
@@ -63,12 +60,12 @@ def test_two_process_distributed_init_and_render():
     assert vals[0][3] == vals[1][3], checks
 
     # ... and equal to the single-process render of the same scene
-    from simple_raytracer_tpu.config import default_config, CameraConfig
-    from simple_raytracer_tpu.render.renderer import render_radiance
-    from simple_raytracer_tpu.scene.scene import SceneManager
-    import simple_raytracer_tpu.scene.transforms as T
-    sm = SceneManager(root="/root/reference")
-    sm.load_obj_file("/root/reference/cube.obj", key="cube")
+    from simple_raytracer.config import default_config, CameraConfig
+    from simple_raytracer.render.renderer import render_radiance
+    from simple_raytracer.scene.scene import SceneManager
+    import simple_raytracer.scene.transforms as T
+    sm = SceneManager()
+    sm.add_mesh("cube", cube_mesh())
     sm.set_color("cube", (0.2, 0.8, 0.3))
     sm.transform_triangles(
         "cube", T.translate((0.0, 0.0, 60.0)) @ T.scale(10.0, 10.0, 10.0))

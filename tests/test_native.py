@@ -5,13 +5,15 @@ import os
 import numpy as np
 import pytest
 
-from simple_raytracer_tpu.native import (bvh_build_native, native_available,
+from simple_raytracer.native import (bvh_build_native, native_available,
                                          obj_parse_native)
-from simple_raytracer_tpu.accel.bvh import build_bvh
-from simple_raytracer_tpu.scene.obj_loader import (_parse_obj_python,
+from simple_raytracer.accel.bvh import build_bvh
+from simple_raytracer.scene.obj_loader import (_parse_obj_python,
                                                    load_obj, TextureRegistry)
+from simple_raytracer.scene.generated import blob_mesh
 
-from conftest import reference_asset
+from conftest import stand_in_obj
+
 
 needs_native = pytest.mark.skipif(not native_available(),
                                   reason="native build unavailable")
@@ -35,8 +37,7 @@ def test_native_bvh_matches_python():
 
 @needs_native
 def test_native_bvh_bunny_matches_python():
-    mesh = load_obj(reference_asset("obj/stanford-bunny.obj"))
-    verts = mesh.verts[..., :3]
+    verts = blob_mesh().verts[..., :3]          # the 81,920-triangle stand-in
     py = build_bvh(verts, 8, use_native=False)
     nt = build_bvh(verts, 8, use_native=True)
     np.testing.assert_array_equal(py.skip, nt.skip)
@@ -48,8 +49,8 @@ def test_native_bvh_bunny_matches_python():
 @pytest.mark.parametrize("rel", ["cube.obj", "sphere.obj",
                                  "obj/stanford-bunny.obj",
                                  "obj/tree/tree.obj"])
-def test_native_obj_parse_matches_python(rel):
-    path = reference_asset(rel)
+def test_native_obj_parse_matches_python(rel, tmp_path):
+    path = stand_in_obj(tmp_path, rel)
     py = _parse_obj_python(path)
     nt = obj_parse_native(path)
     assert nt is not None
@@ -60,14 +61,15 @@ def test_native_obj_parse_matches_python(rel):
 
 
 @needs_native
-def test_load_obj_native_and_python_identical():
-    path = reference_asset("obj/tree/tree.obj")
-    m_native = load_obj(path, textures=TextureRegistry(root="/root/reference"))
+def test_load_obj_native_and_python_identical(tmp_path):
+    path = stand_in_obj(tmp_path, "obj/tree/tree.obj")
+    m_native = load_obj(path, textures=TextureRegistry(root=str(tmp_path)))
     os.environ["SRT_NO_NATIVE"] = "1"
     try:
-        m_py = load_obj(path, textures=TextureRegistry(root="/root/reference"))
+        m_py = load_obj(path, textures=TextureRegistry(root=str(tmp_path)))
     finally:
         del os.environ["SRT_NO_NATIVE"]
+    assert m_native.num_triangles == 960 and m_native.textures
     np.testing.assert_array_equal(m_native.verts, m_py.verts)
     np.testing.assert_array_equal(m_native.uvs, m_py.uvs)
     np.testing.assert_array_equal(m_native.tri_color, m_py.tri_color)

@@ -6,20 +6,24 @@ import jax
 import jax.numpy as jnp
 import pytest
 
-from simple_raytracer_tpu.config import default_config, CameraConfig, ShadingConfig
-from simple_raytracer_tpu.render.renderer import render, render_radiance
-from simple_raytracer_tpu.scene.scene import SceneManager
-import simple_raytracer_tpu.scene.transforms as T
+from simple_raytracer.config import default_config, CameraConfig, ShadingConfig
+from simple_raytracer.render.renderer import render, render_radiance
+from simple_raytracer.scene.scene import SceneManager
+import simple_raytracer.scene.transforms as T
+from simple_raytracer.scene.generated import cube_mesh, uv_sphere_mesh
 
-from conftest import reference_asset
+from conftest import INTERPRET
+
+
 
 LIGHT = jnp.array([500.0, -300.0, -200.0], jnp.float32)
 
 
 def _sphere_scene():
-    sm = SceneManager(root="/root/reference")
-    sm.load_obj_file(reference_asset("sphere.obj"), key="s")
-    sm.transform_triangles("s", T.translate((0.0, 4.0, 30.0)))
+    sm = SceneManager()
+    sm.add_mesh("s", uv_sphere_mesh())
+    sm.transform_triangles("s", T.translate((0.0, 4.0, 30.0))
+                           @ T.scale(2.5, 2.5, 2.5))
     return sm.build()
 
 
@@ -32,7 +36,7 @@ def test_radiance_is_finite_on_hits():
 
 
 def test_smooth_normals_differ_from_flat():
-    """sphere.obj ships vertex normals; the smooth path (the reference's
+    """The sphere carries vertex normals; the smooth path (the reference's
     commented-out interpolateNormal, simple_raytracer.cpp:132-140) must
     produce a smoother sphere than flat facets."""
     scene = _sphere_scene()
@@ -56,8 +60,8 @@ def test_degenerate_triangles_never_hit():
     """Zero-area triangles (det ~ 0) must be rejected by the epsilon guard,
     not produce NaN/garbage hits — this is what makes the padding scheme in
     accel/prepared.py safe."""
-    sm = SceneManager(root="/root/reference")
-    sm.load_obj_file(reference_asset("cube.obj"), key="c")
+    sm = SceneManager()
+    sm.add_mesh("c", cube_mesh())
     sm.transform_triangles("c", T.translate((0.0, 0.0, 40.0)) @ T.scale(5, 5, 5))
     scene = sm.build()
     # collapse every triangle to its first vertex
@@ -77,8 +81,8 @@ def test_render_under_debug_nans():
     Miss lanes legitimately produce inf-inf style garbage after the
     min-reduction, so this runs on a fully-covered frame (sphere fills it).
     """
-    sm = SceneManager(root="/root/reference")
-    sm.load_obj_file(reference_asset("cube.obj"), key="c")
+    sm = SceneManager()
+    sm.add_mesh("c", cube_mesh())
     sm.set_color("c", (0.3, 0.5, 0.9))
     sm.transform_triangles("c", T.translate((0.0, 0.0, 30.0)) @ T.scale(20, 20, 20))
     scene = sm.build()
@@ -94,7 +98,7 @@ def test_render_under_debug_nans():
 def test_empty_scene_renders_background():
     """Missing-OBJ soft failure (Object.cpp:35-39): an empty scene renders a
     pure background frame instead of crashing."""
-    from simple_raytracer_tpu.scene.scene import SceneManager
+    from simple_raytracer.scene.scene import SceneManager
     sm = SceneManager(root="/tmp/nonexistent")
     sm.load_obj_file("/tmp/nonexistent/missing.obj", key="gone")
     scene = sm.build()
@@ -106,17 +110,17 @@ def test_empty_scene_renders_background():
 def test_shadow_max_t_toggle():
     """shadow_no_max_t=True (reference quirk): an occluder BEYOND the light
     still shadows; False: it does not."""
-    from simple_raytracer_tpu.config import LightConfig
-    from simple_raytracer_tpu.scene.scene import SceneManager
-    sm = SceneManager(root="/root/reference")
+    from simple_raytracer.config import LightConfig
+    from simple_raytracer.scene.scene import SceneManager
+    sm = SceneManager()
     # target plane at z=40
-    sm.load_obj_file(reference_asset("cube.obj"), key="plane")
+    sm.add_mesh("plane", cube_mesh())
     sm.set_color("plane", (0.8, 0.8, 0.8))
     sm.transform_triangles("plane", T.scale(10.0, 10.0, 1.0))
     sm.transform_triangles("plane", T.translate((0.0, 0.0, 40.0)))
     # occluder BEHIND the light as seen from the plane: light is at z=10,
     # occluder at z=-20 (farther along the plane->light direction)
-    sm.load_obj_file(reference_asset("cube.obj"), key="occ")
+    sm.add_mesh("occ", cube_mesh())
     sm.set_color("occ", (0.1, 0.1, 0.9))
     sm.transform_triangles("occ", T.scale(30.0, 30.0, 1.0))
     sm.transform_triangles("occ", T.translate((0.0, 0.0, -20.0)))
@@ -135,9 +139,9 @@ def test_shadow_max_t_toggle():
 
 
 def test_specular_nl_toggle():
-    from simple_raytracer_tpu.scene.scene import SceneManager
-    sm = SceneManager(root="/root/reference")
-    sm.load_obj_file(reference_asset("sphere.obj"), key="s")
+    from simple_raytracer.scene.scene import SceneManager
+    sm = SceneManager()
+    sm.add_mesh("s", uv_sphere_mesh())
     sm.transform_triangles("s", T.translate((0.0, 0.0, 20.0)))
     scene = sm.build()
     cam = CameraConfig(width=48, height=48)
@@ -155,19 +159,19 @@ def test_tiled_fused_render_under_debug_nans():
     including its padded off-frame and miss lanes — the epilogue pins
     miss t to 0 and floors rv with a NORMAL f32 precisely so no masked
     NaN is ever produced (the round-4 shin==0 NaN lived here)."""
-    sm = SceneManager(root="/root/reference")
-    sm.load_obj_file(reference_asset("cube.obj"), key="c")
+    sm = SceneManager()
+    sm.add_mesh("c", cube_mesh())
     sm.set_color("c", (0.3, 0.5, 0.9))
     sm.transform_triangles(
         "c", T.translate((0.0, 0.0, 30.0)) @ T.scale(20, 20, 20))
-    sm.load_obj_file(reference_asset("sphere.obj"), key="s")
+    sm.add_mesh("s", uv_sphere_mesh())
     sm.set_color("s", (0.9, 0.8, 0.2))
     sm.transform_triangles(
         "s", T.translate((0.0, 0.0, 20.0)) @ T.scale(3, 3, 3))
     scene = sm.build()
     cfg = default_config().replace(
-        mode="tiled", camera=CameraConfig(width=16, height=16))
-    from simple_raytracer_tpu.accel.prepared import prepare
+        mode="tiled", kernel=INTERPRET, camera=CameraConfig(width=16, height=16))
+    from simple_raytracer.accel.prepared import prepare
     prep = prepare(scene, cfg)
     with jax.debug_nans(True):
         rad, hit = jax.jit(

@@ -5,9 +5,11 @@ import os
 import numpy as np
 import pytest
 
-from simple_raytracer_tpu.scene.obj_loader import (
+from simple_raytracer.scene.obj_loader import (
     TextureRegistry, load_obj)
-from tests.conftest import needs_assets, reference_asset
+
+from conftest import stand_in_obj
+
 
 
 def test_missing_file_soft_failure(capsys):
@@ -72,22 +74,23 @@ def test_uv_bake_semantics(tmp_path):
     assert mesh2.uvs[0, 0, 0] == (int(np.floor(-0.125 * 8)) % 8 + 8) % 8 == 7
 
 
-@needs_assets
-def test_reference_asset_counts():
-    """Known triangle counts (SURVEY.md §2 #23)."""
-    assert load_obj(reference_asset("cube.obj")).num_triangles == 12
-    assert load_obj(reference_asset("sphere.obj")).num_triangles == 320
-    bunny = load_obj(reference_asset("obj/stanford-bunny.obj"))
-    assert bunny.num_triangles == 69451
+def test_reference_asset_counts(tmp_path):
+    """Triangle counts of the generated stand-ins, through OBJ files (the
+    reference's cube.obj has the same 12; its bunny has 69,451)."""
+    assert load_obj(stand_in_obj(tmp_path, "cube.obj")).num_triangles == 12
+    assert load_obj(stand_in_obj(tmp_path, "sphere.obj")).num_triangles \
+        == 960
+    bunny = load_obj(stand_in_obj(tmp_path, "obj/stanford-bunny.obj"))
+    assert bunny.num_triangles == 81920
     # bunny has no normals or UVs
     assert np.all(bunny.normals == 0)
     assert np.all(bunny.tri_tex == -1)
 
 
-@needs_assets
-def test_tree_texture_loads():
-    reg = TextureRegistry(root=reference_asset(""))
-    mesh = load_obj(reference_asset("obj/tree/tree.obj"), textures=reg)
+def test_tree_texture_loads(tmp_path):
+    reg = TextureRegistry(root=str(tmp_path))
+    mesh = load_obj(stand_in_obj(tmp_path, "obj/tree/tree.obj"),
+                    textures=reg)
     assert mesh.num_triangles > 0
-    assert len(mesh.textures) == 1          # oak diffuse
+    assert len(mesh.textures) == 1          # the foliage diffuse map
     assert np.any(mesh.tri_tex >= 0)

@@ -5,16 +5,18 @@ import jax
 import jax.numpy as jnp
 import pytest
 
-from simple_raytracer_tpu import RenderConfig, CameraConfig, SceneManager, render
-from simple_raytracer_tpu.render.renderer import render_radiance
-from simple_raytracer_tpu.scene import transforms as T
-from tests.conftest import needs_assets, reference_asset
+from simple_raytracer import RenderConfig, CameraConfig, SceneManager, render
+from simple_raytracer.render.renderer import render_radiance
+from simple_raytracer.scene import transforms as T
+from simple_raytracer.scene.generated import cube_mesh, uv_sphere_mesh
+
 
 
 def _sphere_scene():
-    mgr = SceneManager(root=reference_asset(""))
-    mgr.load_obj_file(reference_asset("sphere.obj"), key="sphere.obj")
-    mgr.transform_triangles("sphere.obj", T.translate([0.0, 6.0, 30.0]))
+    mgr = SceneManager()
+    mgr.add_mesh("sphere.obj", uv_sphere_mesh())
+    mgr.transform_triangles("sphere.obj", T.translate([0.0, 6.0, 30.0])
+                            @ T.scale(2.5, 2.5, 2.5))
     return mgr.build()
 
 
@@ -22,7 +24,6 @@ def _cfg(n=128):
     return RenderConfig(camera=CameraConfig(width=n, height=n, focal=float(n)))
 
 
-@needs_assets
 def test_sphere_render_smoke():
     scene = _sphere_scene()
     cfg = _cfg(128)
@@ -39,7 +40,6 @@ def test_sphere_render_smoke():
     assert 0.01 < hit_frac < 0.9
 
 
-@needs_assets
 def test_render_jit_compiles_and_caches():
     scene = _sphere_scene()
     cfg = _cfg(64)
@@ -50,15 +50,14 @@ def test_render_jit_compiles_and_caches():
     np.testing.assert_allclose(np.asarray(r1), np.asarray(r2))
 
 
-@needs_assets
 def test_shadow_dims_not_zeroes():
     """Shadowed samples are divided by 5, not zeroed (cpp:369): a scene with an
     occluder keeps nonzero radiance in shadowed pixels."""
-    mgr = SceneManager(root=reference_asset(""))
-    mgr.load_obj_file(reference_asset("cube.obj"), key="ground")
+    mgr = SceneManager()
+    mgr.add_mesh("ground", cube_mesh())
     mgr.transform_triangles("ground", T.scale(30.0, 2.0, 30.0))
     mgr.transform_triangles("ground", T.translate([0.0, 10.0, 40.0]))
-    mgr.load_obj_file(reference_asset("cube.obj"), key="blocker")
+    mgr.add_mesh("blocker", cube_mesh())
     mgr.transform_triangles("blocker", T.scale(4.0, 4.0, 4.0))
     mgr.transform_triangles("blocker", T.translate([0.0, -2.0, 40.0]))
     scene = mgr.build()
@@ -74,12 +73,11 @@ def test_shadow_dims_not_zeroes():
     assert np.all(rad[hit].max(axis=-1) > 0.0)
 
 
-@needs_assets
 def test_black_pixels_become_background():
     """Hits shading to exactly (0,0,0) after quantization are swallowed by the
     light-blue background fill (cpp:481, :518)."""
-    mgr = SceneManager(root=reference_asset(""))
-    mgr.load_obj_file(reference_asset("cube.obj"), key="cube")
+    mgr = SceneManager()
+    mgr.add_mesh("cube", cube_mesh())
     mgr.set_color("cube", (0.0, 0.0, 0.0))       # black object
     mgr.set_properties("cube", ambient=0.0, specular=0.0)
     mgr.transform_triangles("cube", T.scale(10.0, 10.0, 10.0))

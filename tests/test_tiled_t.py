@@ -1,32 +1,35 @@
-"""Sublane-grouped (transposed) kernel path vs the jnp oracle (interpret
-mode on CPU).  Mirrors tests/test_tiled.py for kernels/tiled_t.py."""
+"""Tiled path variants (window width, range fallback, walk tile size) vs the
+jnp oracle, the Triton walk in interpret mode on the CPU."""
+
+import dataclasses
 
 import numpy as np
 import jax
 import jax.numpy as jnp
 import pytest
 
-from simple_raytracer_tpu.config import (default_config, CameraConfig,
+from simple_raytracer.config import (default_config, CameraConfig,
                                          LightConfig)
-from simple_raytracer_tpu.accel.prepared import prepare
-from simple_raytracer_tpu.kernels import tiled, tiled_t
-from simple_raytracer_tpu.ops.camera import primary_rays
-from simple_raytracer_tpu.render.renderer import render, brute_force_hits
-from simple_raytracer_tpu.scene.scene import SceneManager
-import simple_raytracer_tpu.scene.transforms as T
+from simple_raytracer.accel.prepared import prepare
+from simple_raytracer.kernels import tiled
+from simple_raytracer.ops.camera import primary_rays
+from simple_raytracer.render.renderer import render, brute_force_hits
+from simple_raytracer.scene.generated import cube_mesh, uv_sphere_mesh
+from simple_raytracer.scene.scene import SceneManager
+import simple_raytracer.scene.transforms as T
 
-from conftest import reference_asset
+from conftest import INTERPRET
 
 
 def _scene(two_objects=True):
-    sm = SceneManager(root="/root/reference")
-    sm.load_obj_file(reference_asset("cube.obj"), key="cube")
+    sm = SceneManager()
+    sm.add_mesh("cube", cube_mesh())
     sm.set_color("cube", (0.2, 0.8, 0.3))
     sm.transform_triangles(
         "cube", T.translate((0.0, 5.0, 80.0)) @ T.rotate_y(25.0)
         @ T.scale(15.0, 15.0, 15.0))
     if two_objects:
-        sm.load_obj_file(reference_asset("sphere.obj"), key="sphere")
+        sm.add_mesh("sphere", uv_sphere_mesh())
         sm.set_color("sphere", (0.9, 0.9, 0.2))
         sm.transform_triangles(
             "sphere", T.translate((-10.0, -15.0, 60.0))
@@ -35,53 +38,24 @@ def _scene(two_objects=True):
 
 
 @pytest.mark.parametrize("wb", [1, 2, 4])
-def test_hits_match_bruteforce(monkeypatch, wb):
-    monkeypatch.setattr(tiled_t, "WINDOW_BLOCKS", wb)
+def test_hits_match_bruteforce(wb):
+    kernel = dataclasses.replace(INTERPRET, window_blocks=wb)
     scene = _scene()
-    prep = prepare(scene, default_config().replace(mode="tiled"))
+    prep = prepare(scene, default_config().replace(mode="tiled",
+                                                   kernel=kernel))
     o, d = primary_rays(64, 32)
     o, d = o.reshape(-1, 3), d.reshape(-1, 3)
 
     t_ref, idx_ref = jax.jit(lambda s, o, d: brute_force_hits(s, o, d))(
         prep.scene, o, d)
-    t_k, idx_k = jax.jit(
-        lambda p, o, d: tiled_t.hits(p, o, d, 256, 1e-12))(prep, o, d)
+    t_k, idx_k = jax.jit(lambda p, o, d: tiled.hits(
+        p, o, d, 256, 1e-12, kernel=kernel))(prep, o, d)
 
+    assert np.isfinite(np.asarray(t_ref)).sum() > 200
     np.testing.assert_allclose(np.asarray(t_ref), np.asarray(t_k),
                                rtol=1e-4, atol=1e-6)
     same = np.asarray(idx_ref) == np.asarray(idx_k)
     assert same.mean() > 0.999, f"idx mismatch fraction {1 - same.mean()}"
-
-
-def test_hits_match_paged_kernel_exactly():
-    """Both kernel layouts run the same Gram contraction at the same
-    precision on identically-packed factors: results must be bit-equal."""
-    scene = _scene()
-    prep = prepare(scene, default_config().replace(mode="tiled"))
-    o, d = primary_rays(64, 32)
-    o, d = o.reshape(-1, 3), d.reshape(-1, 3)
-    t_p, idx_p = jax.jit(
-        lambda p, o, d: tiled.tiled_hits(p, o, d, 256, 1e-12))(prep, o, d)
-    t_s, idx_s = jax.jit(
-        lambda p, o, d: tiled_t.hits(p, o, d, 256, 1e-12))(prep, o, d)
-    np.testing.assert_array_equal(np.asarray(t_p), np.asarray(t_s))
-    np.testing.assert_array_equal(np.asarray(idx_p), np.asarray(idx_s))
-
-
-def test_dma_path_matches_resident(monkeypatch):
-    """Small scenes default to the VMEM-RESIDENT kernels; the DMA streaming
-    path (big scenes) must produce bit-identical results."""
-    scene = _scene()
-    prep = prepare(scene, default_config().replace(mode="tiled"))
-    o, d = primary_rays(64, 32)
-    o, d = o.reshape(-1, 3), d.reshape(-1, 3)
-    t_r, i_r = jax.jit(
-        lambda p, o, d: tiled_t.hits(p, o, d, 256, 1e-12))(prep, o, d)
-    monkeypatch.setenv("SRT_TILED_RESIDENT", "0")
-    t_d, i_d = jax.jit(
-        lambda p, o, d: tiled_t.hits(p, o, d, 256, 1e-12))(prep, o, d)
-    np.testing.assert_array_equal(np.asarray(t_r), np.asarray(t_d))
-    np.testing.assert_array_equal(np.asarray(i_r), np.asarray(i_d))
 
 
 def test_range_fallback_matches_lists():
@@ -89,12 +63,11 @@ def test_range_fallback_matches_lists():
     prep = prepare(scene, default_config().replace(mode="tiled"))
     o, d = primary_rays(64, 32)
     o, d = o.reshape(-1, 3), d.reshape(-1, 3)
-    t_l, idx_l = jax.jit(
-        lambda p, o, d: tiled_t.hits(p, o, d, 256, 1e-12, maxv=248))(
-            prep, o, d)
-    t_r, idx_r = jax.jit(
-        lambda p, o, d: tiled_t.hits(p, o, d, 256, 1e-12, maxv=0))(
-            prep, o, d)
+    t_l, idx_l = jax.jit(lambda p, o, d: tiled.hits(
+        p, o, d, 256, 1e-12, maxv=248, kernel=INTERPRET))(prep, o, d)
+    t_r, idx_r = jax.jit(lambda p, o, d: tiled.hits(
+        p, o, d, 256, 1e-12, maxv=0, kernel=INTERPRET))(prep, o, d)
+    assert np.isfinite(np.asarray(t_l)).sum() > 200
     np.testing.assert_array_equal(np.asarray(t_l), np.asarray(t_r))
     np.testing.assert_array_equal(np.asarray(idx_l), np.asarray(idx_r))
 
@@ -104,7 +77,7 @@ def test_render_matches_bruteforce_image():
     cam = CameraConfig(width=64, height=32)
     cfg_bf = default_config().replace(mode="bruteforce", camera=cam)
     cfg_tl = default_config().replace(mode="tiled", camera=cam,
-                                      tiled_impl="sublane")
+                                      kernel=INTERPRET)
     light = jnp.array([500.0, -300.0, -200.0], jnp.float32)
 
     img_bf = np.asarray(render(scene, cfg_bf, light))
@@ -115,8 +88,8 @@ def test_render_matches_bruteforce_image():
 
 
 def test_shadow_matches_bruteforce():
-    """Hard-shadow occlusion through the sublane any-hit kernel (incl. the
-    self-object skip read from det-row feature column 10)."""
+    """Hard-shadow occlusion through the any-hit walk (incl. the
+    self-object skip read from the geometry's object-id row)."""
     scene = _scene()
     prep = prepare(scene, default_config().replace(mode="tiled"))
     o, d = primary_rays(32, 16)
@@ -129,21 +102,22 @@ def test_shadow_matches_bruteforce():
     self_obj = prep.scene.tri_obj[jnp.maximum(idx, 0)]
     light = jnp.broadcast_to(jnp.array([500.0, -300.0, -200.0]), point.shape)
 
-    from simple_raytracer_tpu.render.renderer import brute_force_shadow
+    from simple_raytracer.render.renderer import brute_force_shadow
     ref = jax.jit(brute_force_shadow(prep.scene))(point, light, self_obj)
-    fn = tiled.tiled_shadow_fn(prep, 256, 1e-12, impl=tiled_t)
+    fn = tiled.tiled_shadow_fn(prep, 128, 1e-12, kernel=INTERPRET)
     got = jax.jit(fn)(point, light, self_obj)
+    assert hitm.sum() > 50
     np.testing.assert_array_equal(np.asarray(ref)[hitm], np.asarray(got)[hitm])
 
 
 def test_soft_shadow_render_matches_bruteforce():
-    """Folded multi-sample occlusion through the sublane kernel."""
+    """Folded multi-sample occlusion through the any-hit walk."""
     scene = _scene()
     cam = CameraConfig(width=48, height=32)
     lcfg = LightConfig(enable_shadows=True, num_samples=4)
     cfg_bf = default_config().replace(mode="bruteforce", camera=cam,
                                       light=lcfg)
-    cfg_tl = cfg_bf.replace(mode="tiled", tiled_impl="sublane")
+    cfg_tl = cfg_bf.replace(mode="tiled", kernel=INTERPRET)
     light = jnp.array([500.0, -300.0, -200.0], jnp.float32)
     img_bf = np.asarray(render(scene, cfg_bf, light))
     img_tl = np.asarray(render(scene, cfg_tl, light))
@@ -152,409 +126,17 @@ def test_soft_shadow_render_matches_bruteforce():
 
 
 def test_hit_tile_subchunks_match_full_tile():
-    """config.hit_tile re-chunks the nearest pass into contiguous sub-tiles
-    of the tile-major stream; the rendered image must be pixel-identical to
-    the full-tile default (same kernel, tighter per-chunk plans)."""
+    """kernel.ray_tile cuts each 16px pixel tile (256 rays) into
+    contiguous walk tiles of the tile-major stream; the rendered image must
+    be pixel-identical for every walk tile size (same walk, tighter
+    per-tile plans)."""
     scene = _scene()
     cam = CameraConfig(width=64, height=48)
     light = jnp.array([500.0, -300.0, -200.0], jnp.float32)
-    cfg = default_config().replace(mode="tiled", camera=cam, tile_px=16)
-    img_full = np.asarray(render(scene, cfg, light))
-    img_sub = np.asarray(render(scene, cfg.replace(hit_tile=128), light))
+    cfg = default_config().replace(mode="tiled", camera=cam, tile_px=16,
+                                   kernel=INTERPRET)
+    img_full = np.asarray(render(scene, cfg.replace(
+        kernel=dataclasses.replace(INTERPRET, ray_tile=256)), light))
+    img_sub = np.asarray(render(scene, cfg, light))
+    assert (~np.all(img_full == np.array([173, 216, 230]), -1)).sum() > 200
     assert (img_full == img_sub).all()
-
-
-def test_attr_fetch_matches_gather(monkeypatch):
-    """The env-gated in-kernel shade-attribute fetch (SRT_ATTR_FETCH=1;
-    exact limb transport through a one-hot MXU contraction, see
-    accel/prepared.py:pack_attr_stacked_np) must render BIT-equal to the
-    default XLA record-gather path on a flat-untextured shadowed scene.
-    (Default OFF: a measured in-frame negative — DESIGN.md round 3.)"""
-    scene = _scene(two_objects=True)
-    cam = CameraConfig(width=64, height=48)
-    lcfg = LightConfig(enable_shadows=True)
-    cfg = default_config().replace(mode="tiled", camera=cam, light=lcfg)
-    light = jnp.array([500.0, -300.0, -200.0], jnp.float32)
-    monkeypatch.setenv("SRT_ATTR_FETCH", "1")
-    img_fetch = np.asarray(render(scene, cfg, light))
-    monkeypatch.setenv("SRT_ATTR_FETCH", "0")
-    img_gather = np.asarray(render(scene, cfg, light))
-    assert np.array_equal(img_fetch, img_gather)
-
-
-def test_hits_iota_features_match_od_path():
-    """The iota feature build (make_cam + _build_feats_iota: no per-tile
-    ray operand) must reproduce the OD-path hits BIT-EXACTLY for the
-    identity view (d rows rebuild as exactly (i, j, focal)), and match
-    hits/indices for a real orbit view (dot-product rounding differs from
-    XLA's [R,3]@[3,3] matmul only in the last ulp)."""
-    from simple_raytracer_tpu.ops.camera import primary_rays_tiled
-    from simple_raytracer_tpu.scene.catalog import orbit_view
-
-    scene = _scene()
-    prep = prepare(scene, default_config().replace(mode="tiled"))
-    W, H, tpx = 96, 64, 16
-    tile = tpx * tpx
-
-    o, d, _, _ = primary_rays_tiled(W, H, tpx, 400.0, False)
-    o, d = o.reshape(-1, 3), d.reshape(-1, 3)
-    t0, i0 = jax.jit(lambda p, o, d: tiled_t.hits(
-        p, o, d, tile, 1e-12, 248, apex=True))(prep, o, d)
-    t1, i1 = jax.jit(lambda p, o, d: tiled_t.hits(
-        p, o, d, tile, 1e-12, 248, apex=True,
-        cam_spec=(None, 400.0, W, H, tpx)))(prep, o, d)
-    m0 = np.isfinite(np.asarray(t0))
-    assert m0.sum() > 100            # scene visible
-    np.testing.assert_array_equal(np.asarray(t0)[m0], np.asarray(t1)[m0])
-    np.testing.assert_array_equal(np.asarray(i0), np.asarray(i1))
-
-    V = orbit_view(30.0, 50.0, -50.0, 30.0, 90.0)
-    o2, d2, _, _ = primary_rays_tiled(W, H, tpx, 400.0, False,
-                                      view_matrix=V)
-    o2, d2 = o2.reshape(-1, 3), d2.reshape(-1, 3)
-    t2, i2 = jax.jit(lambda p, o, d: tiled_t.hits(
-        p, o, d, tile, 1e-12, 248, apex=True))(prep, o2, d2)
-    t3, i3 = jax.jit(lambda p, o, d, V: tiled_t.hits(
-        p, o, d, tile, 1e-12, 248, apex=True,
-        cam_spec=(V, 400.0, W, H, tpx)))(
-            prep, o2, d2, jnp.asarray(V, jnp.float32))
-    m2, m3 = np.isfinite(np.asarray(t2)), np.isfinite(np.asarray(t3))
-    assert (m2 == m3).mean() > 0.999
-    both = m2 & m3
-    np.testing.assert_allclose(np.asarray(t2)[both], np.asarray(t3)[both],
-                               rtol=1e-5, atol=1e-6)
-    assert (np.asarray(i2) == np.asarray(i3)).mean() > 0.999
-
-
-def test_fused_phong_matches_integrator(monkeypatch):
-    """The fused in-kernel Phong epilogue (hits_shaded + the shadow-dim/
-    tonemap tail in render_flat_tiled) must reproduce the integrator
-    path's radiance to float rounding (the kernel evaluates the same
-    Phong terms on [1,T] rows; rv**shin goes through exp/log)."""
-    import simple_raytracer_tpu.kernels.tiled as tl
-    from simple_raytracer_tpu.ops.camera import primary_rays_tiled
-
-    scene = _scene()
-    cfg = default_config().replace(
-        mode="tiled", camera=CameraConfig(width=128, height=128,
-                                          focal=400.0))
-    prep = prepare(scene, cfg)
-    o, d, _, _ = primary_rays_tiled(128, 128, 64, 400.0, False)
-    o, d = o.reshape(-1, 3), d.reshape(-1, 3)
-    light = jnp.asarray([500., -300., -200.])
-    cspec = (None, 400.0, 128, 128, 64)
-
-    monkeypatch.setenv("SRT_FUSED_PHONG", "1")
-    called = []
-    orig = tiled_t.hits_shaded
-    monkeypatch.setattr(tiled_t, "hits_shaded",
-                        lambda *a, **k: (called.append(1), orig(*a, **k))[1])
-    rad_f, hit_f = tl.render_flat_tiled(prep, cfg, o, d, light,
-                                        cam_spec=cspec)
-    assert called, "fused path not taken"
-    monkeypatch.setenv("SRT_FUSED_PHONG", "0")
-    rad_u, hit_u = tl.render_flat_tiled(prep, cfg, o, d, light,
-                                        cam_spec=cspec)
-    m = np.asarray(hit_f)
-    assert (np.asarray(hit_u) == m).all()
-    assert m.sum() > 500
-    np.testing.assert_allclose(np.asarray(rad_f)[m], np.asarray(rad_u)[m],
-                               rtol=2e-5, atol=2e-6)
-
-
-def test_analytic_tile_bounds_match_ray_reductions():
-    """analytic_tile_bounds (O(tiles) corner math) must reproduce the
-    O(R) per-tile ray reductions exactly for affine primary bundles:
-    d is affine in (px, py) so its per-tile extremes sit at the rect
-    corners, and the projective (ru, rv, dw) extremes likewise (central
-    projection maps the rect to a quad with corner vertices)."""
-    from simple_raytracer_tpu.ops.camera import primary_rays_tiled
-    from simple_raytracer_tpu.scene.catalog import orbit_view
-
-    W, H, tpx = 96, 64, 16
-    for vm in (None, orbit_view(40.0, 50.0, -50.0, 30.0, 90.0)):
-        o, d, tx, ty = primary_rays_tiled(W, H, tpx, 400.0, False,
-                                          view_matrix=vm)
-        o, d = o.reshape(-1, 3), d.reshape(-1, 3)
-        n = o.shape[0] // (tpx * tpx)
-        ab = tiled_t.analytic_tile_bounds(
-            (None if vm is None else jnp.asarray(vm, jnp.float32),
-             400.0, W, H, tpx), n)
-        dt = np.asarray(d).reshape(n, tpx * tpx, 3)
-        np.testing.assert_allclose(np.asarray(ab["dmin"]), dt.min(1),
-                                   rtol=1e-6, atol=1e-4)
-        np.testing.assert_allclose(np.asarray(ab["dmax"]), dt.max(1),
-                                   rtol=1e-6, atol=1e-4)
-        ot = np.asarray(o).reshape(n, tpx * tpx, 3)
-        np.testing.assert_allclose(np.asarray(ab["omin"]), ot.min(1),
-                                   atol=1e-6)
-        # projective bounds: conservative vs the ray set (corners bound
-        # the sampled grid); dw_hi must dominate every sampled dw
-        w = np.asarray(ab["w"])
-        dw = dt @ w
-        assert (np.asarray(ab["dw_hi"]) >= dw.max(1) - 1e-4).all()
-        s_, v_ = np.asarray(ab["s"]), np.asarray(ab["v"])
-        ru = (dt @ s_) / np.maximum(dw, 1e-12)
-        rv = (dt @ v_) / np.maximum(dw, 1e-12)
-        assert (np.asarray(ab["ru_lo"]) <= ru.min(1) + 1e-4).all()
-        assert (np.asarray(ab["ru_hi"]) >= ru.max(1) - 1e-4).all()
-        assert (np.asarray(ab["rv_lo"]) <= rv.min(1) + 1e-4).all()
-        assert (np.asarray(ab["rv_hi"]) >= rv.max(1) - 1e-4).all()
-
-
-def test_fused_phong_shininess_zero_matches_integrator(monkeypatch):
-    """shininess == 0 corner: jnp.power(0, 0) == 1 (and C++ pow(0,0) == 1),
-    so a shininess-0 material gets FULL specular even where the clamped
-    r.v is 0.  The fused epilogue's exp/log form must reproduce that
-    (regression: where(rv > 0, ...) silently returned 0 there)."""
-    import simple_raytracer_tpu.kernels.tiled as tl
-    from simple_raytracer_tpu.ops.camera import primary_rays_tiled
-
-    sm = SceneManager(root="/root/reference")
-    sm.load_obj_file(reference_asset("cube.obj"), key="cube")
-    sm.set_color("cube", (0.2, 0.8, 0.3))
-    sm.set_properties("cube", shininess=0.0)
-    sm.transform_triangles(
-        "cube", T.translate((0.0, 5.0, 80.0)) @ T.rotate_y(25.0)
-        @ T.scale(15.0, 15.0, 15.0))
-    scene = sm.build()
-    cfg = default_config().replace(
-        mode="tiled", camera=CameraConfig(width=128, height=128,
-                                          focal=400.0))
-    prep = prepare(scene, cfg)
-    o, d, _, _ = primary_rays_tiled(128, 128, 64, 400.0, False)
-    o, d = o.reshape(-1, 3), d.reshape(-1, 3)
-    light = jnp.asarray([500., -300., -200.])
-    cspec = (None, 400.0, 128, 128, 64)
-
-    monkeypatch.setenv("SRT_FUSED_PHONG", "1")
-    rad_f, hit_f = tl.render_flat_tiled(prep, cfg, o, d, light,
-                                        cam_spec=cspec)
-    monkeypatch.setenv("SRT_FUSED_PHONG", "0")
-    rad_u, hit_u = tl.render_flat_tiled(prep, cfg, o, d, light,
-                                        cam_spec=cspec)
-    m = np.asarray(hit_f)
-    assert (np.asarray(hit_u) == m).all()
-    assert m.sum() > 500
-    np.testing.assert_allclose(np.asarray(rad_f)[m], np.asarray(rad_u)[m],
-                               rtol=2e-5, atol=2e-6)
-
-
-def _shadow_scene():
-    sm = SceneManager(root="/root/reference")
-    sm.load_obj_file(reference_asset("cube.obj"), key="cube")
-    sm.set_color("cube", (0.2, 0.8, 0.3))
-    sm.transform_triangles(
-        "cube", T.translate((0.0, 5.0, 80.0)) @ T.rotate_y(25.0)
-        @ T.scale(15.0, 15.0, 15.0))
-    sm.load_obj_file(reference_asset("sphere.obj"), key="sphere")
-    sm.set_color("sphere", (0.9, 0.9, 0.2))
-    sm.transform_triangles(
-        "sphere", T.translate((-10.0, -15.0, 60.0)) @ T.scale(6.0, 6.0, 6.0))
-    sm.load_obj_file(reference_asset("cube.obj"), key="ground")
-    sm.set_color("ground", (0.7, 0.6, 0.2))
-    sm.transform_triangles(
-        "ground", T.translate((0.0, 24.0, 80.0)) @ T.scale(30.0, 2.0, 30.0))
-    return sm.build()
-
-
-@pytest.mark.parametrize("view", ["identity", "orbit"])
-def test_fused_shadow_matches_legacy(monkeypatch, view):
-    """The fused-shadow pipeline (hits_shaded bounds row -> O(tiles)
-    analytic_shadow_bounds plan -> from-t any-hit kernel rebuilding rays
-    in VMEM) must reproduce the legacy XLA-glue shadow path: identical
-    hit masks and radiance (bit-equal for the identity view, where the
-    iota-rebuilt rays are exact)."""
-    import math
-    import simple_raytracer_tpu.kernels.tiled as tl
-    from simple_raytracer_tpu.ops.camera import primary_rays_tiled
-
-    scene = _shadow_scene()
-    cfg = default_config().replace(
-        mode="tiled", camera=CameraConfig(width=128, height=128,
-                                          focal=400.0))
-    prep = prepare(scene, cfg)
-    # off-axis camera aimed at the scene centroid (~(0, 5, 72)) so the
-    # iota ray rebuild exercises a non-trivial view matrix
-    V = None if view == "identity" else jnp.asarray(
-        T.view_matrix((35.0, -10.0, 15.0),
-                      (math.radians(13.0), math.radians(31.5), 0.0)),
-        jnp.float32)
-    o, d, _, _ = primary_rays_tiled(128, 128, 64, 400.0, False,
-                                    view_matrix=V)
-    o, d = o.reshape(-1, 3), d.reshape(-1, 3)
-    light = jnp.asarray([500., -300., -200.])
-    cspec = (V, 400.0, 128, 128, 64)
-
-    called = []
-    orig = tiled_t.anyhit_from_t
-    monkeypatch.setattr(tiled_t, "anyhit_from_t",
-                        lambda *a, **k: (called.append(1), orig(*a, **k))[1])
-    monkeypatch.setenv("SRT_FUSED_SHADOW", "1")
-    rad_f, hit_f = tl.render_flat_tiled(prep, cfg, o, d, light,
-                                        cam_spec=cspec)
-    assert called, "fused shadow path not taken"
-    monkeypatch.setenv("SRT_FUSED_SHADOW", "0")
-    rad_l, hit_l = tl.render_flat_tiled(prep, cfg, o, d, light,
-                                        cam_spec=cspec)
-    m = np.asarray(hit_f)
-    assert (np.asarray(hit_l) == m).all()
-    assert m.sum() > 500
-    rf, rl = np.asarray(rad_f)[m], np.asarray(rad_l)[m]
-    if view == "identity":
-        np.testing.assert_array_equal(rf, rl)
-    else:
-        np.testing.assert_allclose(rf, rl, rtol=2e-4, atol=2e-5)
-
-    # the shadow pass must actually dim something: compare no-shadow
-    monkeypatch.setenv("SRT_FUSED_SHADOW", "1")
-    import dataclasses as _dc
-    cfg_ns = cfg.replace(light=_dc.replace(cfg.light,
-                                           enable_shadows=False))
-    rad_n, _ = tl.render_flat_tiled(prep, cfg_ns, o, d, light,
-                                    cam_spec=cspec)
-    dimmed = (np.asarray(rad_n)[m] - rf > 1e-6).any(axis=-1)
-    assert dimmed.sum() > 50, dimmed.sum()
-
-
-def test_fused_tex_matches_gather_path(monkeypatch):
-    """Textured scenes on the fused path (UV affine-map attr transport +
-    in-kernel Phong factors + XLA texel-gather finish) must reproduce the
-    legacy record-gather shading: identical hit masks, near-bit radiance
-    (the 3-limb UV transport holds texel coords to ~0.006 texels; allow a
-    vanishing fraction of +-1 texel truncation flips)."""
-    import simple_raytracer_tpu.kernels.tiled as tl
-    from simple_raytracer_tpu.ops.camera import primary_rays_tiled
-
-    sm = SceneManager(root="/root/reference")
-    sm.load_obj_file(reference_asset("obj/tree/tree.obj"), key="tree")
-    sm.set_properties("tree", specular=0.0)
-    sm.transform_triangles(
-        "tree", T.translate((0.0, 25.0, 70.0))
-        @ T.rotate_x(-1.5707963) @ T.scale(0.06, 0.06, 0.06))
-    sm.load_obj_file(reference_asset("cube.obj"), key="ground")
-    sm.set_color("ground", (0.2, 0.8, 0.3))
-    sm.transform_triangles(
-        "ground", T.translate((0.0, 27.0, 60.0)) @ T.scale(25.0, 2.0, 25.0))
-    scene = sm.build()
-    assert scene.has_textures
-    cfg = default_config().replace(
-        mode="tiled", camera=CameraConfig(width=128, height=128,
-                                          focal=400.0))
-    prep = prepare(scene, cfg)
-    assert prep.attr_tex and prep.has_attr
-    o, d, _, _ = primary_rays_tiled(128, 128, 64, 400.0, False)
-    o, d = o.reshape(-1, 3), d.reshape(-1, 3)
-    light = jnp.asarray([500., -300., -200.])
-    cspec = (None, 400.0, 128, 128, 64)
-    monkeypatch.setenv("SRT_FUSED_PHONG", "1")
-    rad_f, hit_f = tl.render_flat_tiled(prep, cfg, o, d, light,
-                                        cam_spec=cspec)
-    monkeypatch.setenv("SRT_FUSED_PHONG", "0")
-    rad_l, hit_l = tl.render_flat_tiled(prep, cfg, o, d, light,
-                                        cam_spec=cspec)
-    m = np.asarray(hit_f)
-    assert (np.asarray(hit_l) == m).all()
-    assert m.sum() > 5000
-    rf, rl = np.asarray(rad_f)[m], np.asarray(rad_l)[m]
-    close = np.abs(rf - rl).max(axis=1) < 1e-3
-    assert close.mean() > 0.999, close.mean()     # texel truncation flips
-    np.testing.assert_allclose(rf[close], rl[close], rtol=2e-4, atol=2e-6)
-
-
-def test_fused_smooth_matches_gather_path(monkeypatch):
-    """Smooth-normal scenes on the fused path (vertex-normal affine-map
-    attr transport, normalize(An @ p + cn) in-kernel) must reproduce the
-    legacy record-gather smooth shading near-exactly, and must visibly
-    differ from flat shading on curved geometry."""
-    import dataclasses
-    import simple_raytracer_tpu.kernels.tiled as tl
-    from simple_raytracer_tpu.ops.camera import primary_rays_tiled
-
-    sm = SceneManager(root="/root/reference")
-    sm.load_obj_file(reference_asset("sphere.obj"), key="s")
-    sm.set_color("s", (0.8, 0.4, 0.3))
-    sm.transform_triangles(
-        "s", T.translate((0.0, 0.0, 60.0)) @ T.scale(12.0, 12.0, 12.0))
-    sm.load_obj_file(reference_asset("cube.obj"), key="ground")
-    sm.set_color("ground", (0.2, 0.8, 0.3))
-    sm.transform_triangles(
-        "ground", T.translate((0.0, 16.0, 60.0)) @ T.scale(25.0, 2.0, 25.0))
-    scene = sm.build()
-    cfg = default_config().replace(
-        mode="tiled", camera=CameraConfig(width=128, height=128,
-                                          focal=400.0))
-    cfg = cfg.replace(shading=dataclasses.replace(
-        cfg.shading, smooth_normals=True))
-    prep = prepare(scene, cfg)
-    assert prep.attr_smooth and prep.has_attr and not prep.attr_tex
-    tpx = tl.effective_tile_px(cfg, prep.scene.verts.shape[0])
-    o, d, _, _ = primary_rays_tiled(128, 128, tpx, 400.0, False)
-    o, d = o.reshape(-1, 3), d.reshape(-1, 3)
-    light = jnp.asarray([500., -300., -200.])
-    cspec = (None, 400.0, 128, 128, tpx)
-    monkeypatch.setenv("SRT_FUSED_PHONG", "1")
-    rad_f, hit_f = tl.render_flat_tiled(prep, cfg, o, d, light,
-                                        cam_spec=cspec)
-    monkeypatch.setenv("SRT_FUSED_PHONG", "0")
-    rad_l, hit_l = tl.render_flat_tiled(prep, cfg, o, d, light,
-                                        cam_spec=cspec)
-    m = np.asarray(hit_f)
-    assert (np.asarray(hit_l) == m).all()
-    assert m.sum() > 5000
-    np.testing.assert_allclose(np.asarray(rad_f)[m], np.asarray(rad_l)[m],
-                               rtol=2e-4, atol=2e-6)
-    # the smooth path must actually smooth: compare against flat shading
-    monkeypatch.setenv("SRT_FUSED_PHONG", "1")
-    cfg_flat = default_config().replace(
-        mode="tiled", camera=CameraConfig(width=128, height=128,
-                                          focal=400.0))
-    prep_flat = prepare(scene, cfg_flat)
-    rad_3, _ = tl.render_flat_tiled(prep_flat, cfg_flat, o, d, light,
-                                    cam_spec=cspec)
-    frac = (np.abs(np.asarray(rad_3)[m] - np.asarray(rad_f)[m]).max(axis=1)
-            > 1e-3).mean()
-    assert frac > 0.5, frac
-
-
-def test_fused_shadow_subtile_matches_legacy(monkeypatch):
-    """Dense-scene configs tune shadow walks to finer tiles
-    (config.shadow_tile); the fused from-t path serves them with
-    per-SUBTILE bounds groups (hits_shaded want_bounds=G) and must stay
-    bit-equal to the legacy shadow path."""
-    import simple_raytracer_tpu.kernels.tiled as tl
-    from simple_raytracer_tpu.ops.camera import primary_rays_tiled
-
-    scene = _shadow_scene()
-    cfg = default_config().replace(
-        mode="tiled", camera=CameraConfig(width=128, height=128,
-                                          focal=400.0),
-        shadow_tile=256)
-    prep = prepare(scene, cfg)
-    tpx = tl.effective_tile_px(cfg, prep.scene.verts.shape[0])
-    htile = tpx * tpx
-    assert tl._shadow_tile(cfg, htile, prep) == 256 and htile == 4096
-    o, d, _, _ = primary_rays_tiled(128, 128, tpx, 400.0, False)
-    o, d = o.reshape(-1, 3), d.reshape(-1, 3)
-    light = jnp.asarray([500., -300., -200.])
-    cspec = (None, 400.0, 128, 128, tpx)
-    called = []
-    orig = tiled_t.anyhit_from_t
-    monkeypatch.setattr(
-        tiled_t, "anyhit_from_t",
-        lambda *a, **k: (called.append(k.get("sub")), orig(*a, **k))[1])
-    monkeypatch.setenv("SRT_FUSED_SHADOW", "1")
-    # subtile mode is opt-in (measured slower on the complex scene —
-    # box bounds looser than per-ray reductions across depth edges)
-    monkeypatch.setenv("SRT_FUSED_SHADOW_SUB", "1")
-    rad_f, hit_f = tl.render_flat_tiled(prep, cfg, o, d, light,
-                                        cam_spec=cspec)
-    monkeypatch.setenv("SRT_FUSED_SHADOW", "0")
-    rad_l, hit_l = tl.render_flat_tiled(prep, cfg, o, d, light,
-                                        cam_spec=cspec)
-    assert called == [16], called          # 4096-ray tile / 256 subtiles
-    m = np.asarray(hit_f)
-    assert (np.asarray(hit_l) == m).all()
-    assert m.sum() > 5000
-    np.testing.assert_array_equal(np.asarray(rad_f)[m],
-                                  np.asarray(rad_l)[m])

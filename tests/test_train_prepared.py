@@ -18,33 +18,36 @@ import pytest
 import jax
 import jax.numpy as jnp
 
-from simple_raytracer_tpu.config import (default_config, CameraConfig,
+from simple_raytracer.config import (default_config, CameraConfig,
                                          LightConfig)
-from simple_raytracer_tpu.dist import (make_mesh, make_train_step,
+from simple_raytracer.dist import (make_mesh, make_train_step,
                                        extract_params)
-from simple_raytracer_tpu.render.renderer import render_radiance
-from simple_raytracer_tpu.accel.prepared import prepare
-from simple_raytracer_tpu.scene.scene import SceneManager
-import simple_raytracer_tpu.scene.transforms as T
+from simple_raytracer.render.renderer import render_radiance
+from simple_raytracer.accel.prepared import prepare
+from simple_raytracer.scene.scene import SceneManager
+import simple_raytracer.scene.transforms as T
+from simple_raytracer.scene.generated import cube_mesh
 
-from conftest import needs_assets
+from conftest import INTERPRET
+
+
 
 
 @pytest.fixture(scope="module")
 def setup():
-    sm = SceneManager(root="/root/reference")
-    sm.load_obj_file("/root/reference/cube.obj", key="cube")
+    sm = SceneManager()
+    sm.add_mesh("cube", cube_mesh())
     sm.set_color("cube", (0.2, 0.8, 0.3))
     sm.transform_triangles(
         "cube", T.translate((0.0, 5.0, 80.0)) @ T.rotate_y(25.0)
         @ T.scale(15.0, 15.0, 15.0))
-    sm.load_obj_file("/root/reference/cube.obj", key="ground")
+    sm.add_mesh("ground", cube_mesh())
     sm.set_color("ground", (0.7, 0.6, 0.2))
     sm.transform_triangles(
         "ground", T.translate((0.0, 24.0, 80.0)) @ T.scale(30.0, 2.0, 30.0))
     scene = sm.build()
     cfg = default_config().replace(
-        mode="tiled", camera=CameraConfig(width=64, height=32),
+        mode="tiled", kernel=INTERPRET, camera=CameraConfig(width=64, height=32),
         light=LightConfig(enable_shadows=True))
     light = jnp.asarray([500.0, -300.0, -200.0], jnp.float32)
     prep = prepare(scene, cfg)
@@ -63,7 +66,6 @@ def _run(step, prep, light, n=5):
     return losses
 
 
-@needs_assets
 def test_prepared_train_step_descends_and_matches(setup):
     prep, cfg, light, target = setup
     _run.target = target
@@ -79,7 +81,6 @@ def test_prepared_train_step_descends_and_matches(setup):
     np.testing.assert_allclose(single, remat, rtol=1e-6)
 
 
-@needs_assets
 def test_pad_band_rays_do_not_shift_loss_optimum(setup):
     """primary_rays_tiled pads ragged frames with REAL out-of-frame rays
     that can hit geometry (the ground slab here); the train loss masks that

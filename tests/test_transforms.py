@@ -2,7 +2,7 @@
 
 import numpy as np
 
-from simple_raytracer_tpu.scene import transforms as T
+from simple_raytracer.scene import transforms as T
 
 
 def test_scale():
